@@ -2,11 +2,12 @@
 
 Counterpart of ``c_ofdm_tpu/models/frame.py``.  The JAX package keeps numpy
 constants that XLA bakes into each executable.  Here the same numpy constants
-are kept, and the device constants derived from them (DFT bases, Toeplitz
-band, TX basis and pilot waveform, conjugated preamble, preamble points) are
-built once per (spec, device, dtype) and held as tensors in
-``FrameSpec.tensors``; ``models.modem.FlagshipStep`` registers them as
-buffers.
+are kept, and the device constants derived from them (DFT bases incl. the
+hop track's half-block basis and sign, Toeplitz band, overlap-save filter
+spectrum, TX basis and pilot waveform, conjugated preamble, preamble points)
+are built once per (spec, device, dtype) and held as tensors in
+``FrameSpec.tensors``; ``models.modem.FlagshipStep`` and
+``models.streaming.StreamingReceiver`` register them as buffers.
 """
 
 from __future__ import annotations
@@ -91,8 +92,8 @@ def _cfo_borders(cfg: ModemConfig):
 def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
                    device: torch.device,
                    dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """Every device constant the flagship path reads, each rounded once from
-    its float64 numpy value to the working precision."""
+    """Every device constant the batch and streaming receivers read, each
+    rounded once from its float64 numpy value to the working precision."""
     rdt = real_dtype(dtype)
 
     def pair(w):
@@ -113,11 +114,16 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         cfg.fft_size, arrays["pilot_bins"], arrays["data_bins"],
         float(cfg.pilot_ampl))
     chan_i, chan_k = chanest._chan_index_np(cfg.num_data_subc)
+    hop_basis, hop_sign = sync._t2_hop_np(arrays["t2_mask"])
     return {
         "t2_basis": pair(sync._t2_basis_np(arrays["t2_mask"])),
         "t2_weights": real(t2_weights),
+        "t2_hop_basis": pair(hop_basis),
+        "t2_hop_sign": real(hop_sign),
         "mf_band": pair(sync._toeplitz_mf_np(arrays["matched_filter"],
                                              cfg.pr_sin_len)),
+        "mf_fft_os": cplx(sync._mf_spectrum_np(arrays["matched_filter"],
+                                               sync.OVERLAP_SAVE_LEN)),
         "cfo_basis": pair(cfo._cfo_basis_np(cfg.preamble_len, segs)),
         "cfo_lo": torch.tensor([lo for lo, _ in segs], dtype=torch.int64,
                                device=device),

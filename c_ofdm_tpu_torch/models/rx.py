@@ -5,10 +5,8 @@ Mirrors the canonical demod recipe of `main.cpp:46-82` / `rx.cpp:158-221`:
 t2sin coarse detect -> preamble fine timing -> coarse pilot CFO -> derotate ->
 per-symbol CP CFO -> common phase -> linear-phase channel est -> partial DFT +
 pilot equalization -> hard demap.  Sync is written out over a leading batch
-axis; the frame windows are gathered by K1 (``ops.extract``).
-
-The streaming-ring gathers (``extract_sigs_single``/``extract_sigs_ring``,
-kernels K2/K3) are not ported yet (ROADMAP.md, Queue 1, "streaming receiver").
+axis; the frame windows are gathered by K1 (``ops.extract``), and the
+streaming receiver's ring windows by K2 (one ring) and K3 (C rings).
 """
 
 from __future__ import annotations
@@ -88,16 +86,41 @@ def synchronize(spec: FrameSpec, captures: torch.Tensor) -> SyncResult:
     return SyncResult(frame_start, t2_begin, pr_begin, found)
 
 
+def _sig_starts(spec: FrameSpec, n: int, frame_starts: torch.Tensor):
+    """(int32 starts of the post-burst span clamped to [0, n - sig], sig)."""
+    cfg = spec.cfg
+    ln = cfg.preamble_len + cfg.message_len
+    starts = torch.clamp(frame_starts + cfg.t2sin_size, 0, n - ln)
+    return starts.to(torch.int32), ln
+
+
 def extract_sigs_rows(spec: FrameSpec, captures: torch.Tensor,
                       frame_starts: torch.Tensor) -> torch.Tensor:
     """The post-burst span [preamble_len + message_len] of each row's frame:
     captures [B, n], frame_starts [B] -> [B, sig], starts clamped to
     [0, n - sig] (K1 on CUDA tensors)."""
-    cfg = spec.cfg
-    ln = cfg.preamble_len + cfg.message_len
-    starts = torch.clamp(frame_starts + cfg.t2sin_size, 0,
-                         captures.shape[-1] - ln).to(torch.int32)
+    starts, ln = _sig_starts(spec, captures.shape[-1], frame_starts)
     return extract.extract_windows(captures, starts, ln)
+
+
+def extract_sigs_single(spec: FrameSpec, capture: torch.Tensor,
+                        frame_starts: torch.Tensor) -> torch.Tensor:
+    """K windows out of ONE capture (the streaming-ring gather):
+    capture [n], frame_starts [K] -> [K, sig], starts clamped to
+    [0, n - sig] (K2 on CUDA tensors)."""
+    starts, ln = _sig_starts(spec, capture.shape[-1], frame_starts)
+    return extract.extract_windows_single(capture, starts, ln)
+
+
+def extract_sigs_ring(spec: FrameSpec, ring: torch.Tensor,
+                      frame_starts: torch.Tensor) -> torch.Tensor:
+    """Streaming-ring gather with an optional channel axis: ring [n] +
+    starts [K] -> [K, sig] (K2), or ring [C, n] + starts [C, K] ->
+    [C, K, sig] (K3 on CUDA tensors)."""
+    if ring.dim() == 1:
+        return extract_sigs_single(spec, ring, frame_starts)
+    starts, ln = _sig_starts(spec, ring.shape[-1], frame_starts)
+    return extract.extract_windows_multi(ring, starts, ln)
 
 
 def receive_batch(spec: FrameSpec, captures: torch.Tensor,

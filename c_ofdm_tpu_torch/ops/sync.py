@@ -1,16 +1,18 @@
 """Time synchronization: two-tone coarse detect + preamble matched filter
-(counterpart of ``c_ofdm_tpu/ops/sync.py``, the batch receiver's subset).
+(counterpart of ``c_ofdm_tpu/ops/sync.py``).
 
 The reference scans serially with early exit (`OFDM/Frame.hpp:150-197`,
 `OFDM/Frame.cpp:338-378`); here dense tracks are computed for every row of a
 batch at once and reduced with a first-hit argmax, which reproduces the
 serial first-hit semantics exactly.  The detector projects each 256-sample
 block onto only the masked bins (a skinny partial-DFT product) and takes the
-total energy from Parseval in the time domain.
+total energy from Parseval in the time domain.  The streaming receiver adds
+the 50%-overlap hop track, the FFT and overlap-save branches of
+``matched_filter_scores`` (``torch.fft``) and the sliding-window sidelobe
+suppression.
 
-Not ported yet (ROADMAP.md, Queue 1, "streaming receiver"): the hop track,
-sync at a nonzero detector start, the FFT and overlap-save branches of
-``matched_filter_scores`` and the sliding-window sidelobe suppression.
+Not ported yet: sync at a nonzero detector start (ROADMAP.md, Queue 1,
+"float64 oracle remainder").
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import torch
 
 from . import fft as fftops
 
-STREAMING = ("{} is not ported yet (ROADMAP.md, Queue 1, 'streaming "
-             "receiver')")
+NOT_PORTED = ("{} is not ported yet (ROADMAP.md, Queue 1, 'float64 oracle "
+              "remainder')")
+# chunk length of the overlap-save matched filter (long captures)
+OVERLAP_SAVE_LEN = 4096
 
 # crossings below this fraction of the search window's best score are
 # ignored in peak_refine mode (pilot-lattice sidelobes reach ~0.75x the true
@@ -62,6 +66,45 @@ def t2_ratio_track(spec, capture: torch.Tensor,
     return torch.where(total > 0, masked / torch.clamp(total, min=1e-30), 0.0)
 
 
+def _t2_hop_np(t2_mask: np.ndarray):
+    """The hop track's constants: the truncated half-block basis
+    [t2sin_size/2, nbins] (first half of the full-window basis) and the
+    half-period phase (-1)^b of each masked bin b."""
+    bins, _ = _t2_masked_bins(t2_mask)
+    size = t2_mask.shape[0]
+    w = fftops.dft_rows(size, bins)[:, :size // 2].T
+    return w, np.where(bins % 2, -1.0, 1.0)
+
+
+def t2_ratio_track_hop(spec, capture: torch.Tensor) -> torch.Tensor:
+    """Per-window masked/total energy ratio at 50% window overlap
+    (hop = t2sin_size/2).  capture [..., n] -> [..., nwin], window w starts
+    at sample w*hop.  With 50% overlap some window always covers >= 3/4 of a
+    burst, whatever its alignment to the blocks.
+
+    Fused half-block form: each HALF-block h is projected onto the masked
+    bins with the truncated basis, A_h[b] = sum_{m<hop} x[h*hop+m]
+    e^{-2 pi i b m / size}; the second half of window w contributes with the
+    half-period phase (-1)^b, so S_w[b] = A_w[b] + (-1)^b A_{w+1}[b] exactly.
+    Parseval totals come from per-half-block energies the same way."""
+    size = spec.cfg.t2sin_size
+    hop = size // 2
+    nh = capture.shape[-1] // hop
+    halves = capture[..., : nh * hop].reshape(*capture.shape[:-1], nh, hop)
+    w = spec.tensors["t2_hop_basis"]
+    sgn = spec.tensors["t2_hop_sign"]
+    xr, xi = halves.real, halves.imag
+    ar = xr @ w[0] - xi @ w[1]
+    ai = xr @ w[1] + xi @ w[0]                       # A_h [..., nh, nbins]
+    sr = ar[..., :-1, :] + sgn * ar[..., 1:, :]
+    si = ai[..., :-1, :] + sgn * ai[..., 1:, :]      # S_w [..., nh-1, nbins]
+    e = sr * sr + si * si
+    masked = (e * spec.tensors["t2_weights"]).sum(-1)
+    h = (xr * xr + xi * xi).sum(-1)                  # [..., nh]
+    total = size * (h[..., :-1] + h[..., 1:])
+    return torch.where(total > 0, masked / torch.clamp(total, min=1e-30), 0.0)
+
+
 def first_above(track: torch.Tensor, level: float):
     """First index along the last axis where track > level; (-1, False) if
     none.  Replicates the serial early-exit semantics of the reference."""
@@ -84,6 +127,39 @@ def suppress_sidelobes(track: torch.Tensor) -> torch.Tensor:
     """Zero every lag scoring below SIDELOBE_SUPPRESS x the window max."""
     tmax = track.amax(dim=-1, keepdim=True)
     return torch.where(track >= SIDELOBE_SUPPRESS * tmax, track, 0.0)
+
+
+def _shift_left(t: torch.Tensor, s: int) -> torch.Tensor:
+    if s == 0:
+        return t
+    pad = torch.full((*t.shape[:-1], s), -torch.inf, dtype=t.dtype,
+                     device=t.device)
+    return torch.cat([t[..., s:], pad], dim=-1)
+
+
+def sliding_max(track: torch.Tensor, radius: int) -> torch.Tensor:
+    """max over [i-radius, i+radius] along the last axis in O(n log radius):
+    sparse-table doubling, then two overlapping power-of-two windows."""
+    w = 2 * radius + 1
+    lead = track.shape[:-1]
+    padded = torch.cat([torch.full((*lead, radius), -torch.inf,
+                                   dtype=track.dtype, device=track.device),
+                        track], dim=-1)
+    k = max(w.bit_length() - 1, 0)          # largest 2^k <= w
+    m = padded
+    for j in range(k):
+        m = torch.maximum(m, _shift_left(m, 1 << j))
+    m = torch.maximum(m, _shift_left(m, w - (1 << k)))
+    return m[..., :track.shape[-1]]
+
+
+def suppress_sidelobes_local(track: torch.Tensor, radius: int) -> torch.Tensor:
+    """Windowed ``suppress_sidelobes`` for dense full-ring tracks: zero lags
+    scoring below SIDELOBE_SUPPRESS x the local maximum within ``radius``
+    lags, so one strong frame cannot suppress a weaker frame's crossing
+    (true neighbouring peaks are >= frame_len > message_len apart)."""
+    return torch.where(track >= SIDELOBE_SUPPRESS * sliding_max(track, radius),
+                       track, 0.0)
 
 
 def refine_to_peak(track: torch.Tensor, idx: torch.Tensor,
@@ -115,7 +191,7 @@ def find_t2sin(spec, capture: torch.Tensor, start: int = 0,
     (`T2SIN_FORM::find_t2sin`, `OFDM/Frame.hpp:150-197`).
     capture [..., n] -> (t2_begin [...], found [...])."""
     if not (isinstance(start, int) and start == 0):
-        raise NotImplementedError(STREAMING.format("find_t2sin at start != 0"))
+        raise NotImplementedError(NOT_PORTED.format("find_t2sin at start != 0"))
     size = spec.cfg.t2sin_size
     track = t2_ratio_track(spec, capture, backend)
     idx, found = first_above(track, spec.cfg.t2_sin_level)
@@ -152,17 +228,51 @@ def _corr_toeplitz(spec, x: torch.Tensor) -> torch.Tensor:
     return mag.reshape(*x.shape[:-1], nchunks * L)[..., :n]
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << int(np.ceil(np.log2(n)))
+
+
+def _mf_spectrum_np(mf: np.ndarray, m: int) -> np.ndarray:
+    """conj(fft(conj(mf zero-padded to m))): the m-point spectrum that turns
+    a circular convolution into the correlation with the stored filter
+    (already conjugated, Frame.cpp:285-294)."""
+    mf_pad = np.zeros(m, dtype=np.complex128)
+    mf_pad[:mf.shape[0]] = mf
+    return np.conj(np.fft.fft(np.conj(mf_pad)))
+
+
+def _corr_fft(x: torch.Tensor, mf_f: torch.Tensor, m: int) -> torch.Tensor:
+    """Circular correlation of x[..., m_or_less] with the matched filter via
+    an m-point FFT pair, given the filter's spectrum ``mf_f`` [m]."""
+    return torch.fft.ifft(torch.fft.fft(x, n=m) * mf_f)
+
+
 def matched_filter_scores(spec, x: torch.Tensor) -> torch.Tensor:
     """Normalized matched-filter score at every lag of x [..., n] -> [..., n]:
     score[i] = |sum_j x[i+j] * mf[j]| / sqrt(sum_j |x[i+j]|^2), the statistic
     of `PREAMBLE_FORM::find_preamble` (`OFDM/Frame.cpp:338-378`).  Lags whose
-    window energy is <= 1 or whose window runs past the end score 0."""
+    window energy is <= 1 or whose window runs past the end score 0.
+
+    Three branches, as in the JAX package: the banded-Toeplitz product for
+    short windows (n <= 2048), one FFT pair for m = next_pow2(n + L) <= 8192,
+    and 4096-point overlap-save chunks beyond that (``torch.fft``)."""
     n = x.shape[-1]
-    if n > 2048:
-        raise NotImplementedError(STREAMING.format(
-            "matched_filter_scores for windows longer than 2048 lags"))
     L = spec.cfg.pr_sin_len
-    corr = _corr_toeplitz(spec, x)
+    m = _next_pow2(n + L)
+    if n <= 2048:
+        corr = _corr_toeplitz(spec, x)
+    elif m <= 8192:
+        mf_f = torch.from_numpy(_mf_spectrum_np(spec.matched_filter, m)).to(
+            device=x.device, dtype=x.dtype)
+        corr = _corr_fft(x, mf_f, m)[..., :n].abs()
+    else:
+        C = OVERLAP_SAVE_LEN
+        hop = C - L + 1
+        nchunks = -(-n // hop)
+        xp = torch.nn.functional.pad(x, (0, nchunks * hop + L - n))
+        chunks = xp.unfold(-1, C, hop)                 # [..., nchunks, C]
+        cc = _corr_fft(chunks, spec.tensors["mf_fft_os"], C)[..., :hop]
+        corr = cc.reshape(*x.shape[:-1], nchunks * hop)[..., :n].abs()
     e = x.abs() ** 2
     ce = torch.nn.functional.pad(torch.cumsum(e, dim=-1), (1, 0))
     norm = ce[..., L:] - ce[..., : n + 1 - L]          # [..., n+1-L]

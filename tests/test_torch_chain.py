@@ -202,9 +202,6 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsync.find_t2sin(spec, torch.zeros((1, 6016), dtype=torch.complex64),
                          start=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsync.matched_filter_scores(
-            spec, torch.zeros((1, 4096), dtype=torch.complex64))
     with pytest.raises(ValueError):
         make_frame_spec(ModemConfig(), device="cpu", extract_backend="pallas")
     with pytest.raises(ValueError):
@@ -213,8 +210,9 @@ def test_unported_branches_raise():
 
 def test_port_never_imports_jax():
     """The port's package imports torch and numpy only: no source file
-    imports jax, and building + running the flagship step in a fresh
-    interpreter leaves jax and the JAX package out of sys.modules."""
+    imports jax, and building + running the flagship step and a streaming
+    buffer in a fresh interpreter leaves jax and the JAX package out of
+    sys.modules."""
     pattern = re.compile(r"^\s*(import jax|from jax|import c_ofdm_tpu\b|"
                          r"from c_ofdm_tpu\b|from c_ofdm_tpu\.)", re.M)
     sources = sorted((REPO / "c_ofdm_tpu_torch").rglob("*.py"))
@@ -226,11 +224,17 @@ def test_port_never_imports_jax():
         "torch.set_num_threads(1)\n"
         "import c_ofdm_tpu_torch\n"
         "from c_ofdm_tpu_torch.models.modem import FlagshipStep\n"
+        "from c_ofdm_tpu_torch.models.streaming import StreamingReceiver\n"
         "from c_ofdm_tpu_torch.ops import _kernels, extract\n"
         "step = FlagshipStep(c_ofdm_tpu_torch.make_frame_spec(device='cpu'))\n"
         "res, s = step(torch.zeros((2, step.spec.cfg.frame_bytes),"
         " dtype=torch.uint8))\n"
         "assert bool(s.found.all())\n"
+        "spec = c_ofdm_tpu_torch.make_frame_spec("
+        "c_ofdm_tpu_torch.ModemConfig(rx_buf_size=2), device='cpu')\n"
+        "out = StreamingReceiver(spec, channels=2).feed(torch.zeros("
+        "(2, 2 * spec.cfg.frame_len), dtype=torch.complex64))\n"
+        "assert not bool(out.valid.any())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'c_ofdm_tpu'))\n"
         "assert not bad, bad\n")

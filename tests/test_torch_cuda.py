@@ -1,4 +1,5 @@
-"""The port on the card: K1 against its plain version and the flagship step.
+"""The port on the card: K1, K2 and K3 against their plain versions, the
+flagship step and one gated streaming buffer.
 
 Every test here needs CUDA and skips without it.  This file imports no jax,
 so it also runs where jax is not installed:
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
 from c_ofdm_tpu_torch.ops import extract
 
@@ -23,7 +25,8 @@ WIN = CFG.preamble_len + CFG.message_len
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+        pytest.skip("needs a CUDA device: K1-K3 are CUDA kernels with no CPU "
+                    "mode")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -86,3 +89,89 @@ def test_module_moves_to_card(dev):
     res, s = step(payload)
     assert res.mac_bytes.device == payload.device
     assert torch.equal(res.mac_bytes, payload)
+
+
+RING = (CFG.rx_buf_size + 1) * CFG.frame_len     # 246 656
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("K,win", [(49, 896), (41, WIN)])
+def test_ring_kernels_match_plain_versions(dev, dtype, K, win):
+    """K2 (one ring) and K3 (C = 3 rings) bit-exact at the streaming path's
+    (K, win) pairs on the stock ring, with edge, negative and past-end
+    starts."""
+    rng = np.random.default_rng(2)
+    rings = _captures(rng, 3, RING, dtype, dev)
+    st = rng.integers(0, RING - win + 1, (3, K))
+    st[:, :7] = [-RING - 5, -7, -1, 0, RING - win, RING - win + 1, 10**6]
+    st = torch.tensor(st, dtype=torch.int32, device=dev)
+    before = (extract.extract_windows_single.launches,
+              extract.extract_windows_multi.launches)
+    got1 = extract.extract_windows_single(rings[0], st[0], win)
+    got3 = extract.extract_windows_multi(rings, st, win)
+    torch.cuda.synchronize()
+    assert (extract.extract_windows_single.launches,
+            extract.extract_windows_multi.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.equal(got1, extract.extract_windows_single_ref(
+        rings[0], st[0], win))
+    assert torch.equal(got3, extract.extract_windows_multi_ref(rings, st, win))
+
+
+def test_ring_kernels_reject_what_they_do_not_take(dev):
+    ring = torch.zeros(64, dtype=torch.complex64, device=dev)
+    st = torch.zeros(3, dtype=torch.int32, device=dev)
+    single, multi = (extract.extract_windows_single,
+                     extract.extract_windows_multi)
+    with pytest.raises(TypeError):
+        single(ring, st.to(torch.int64), 8)
+    with pytest.raises(TypeError):
+        single(ring.real.contiguous(), st, 8)
+    with pytest.raises(ValueError):
+        single(ring[None], st, 8)
+    with pytest.raises(ValueError):
+        single(ring, st, 65)
+    with pytest.raises(ValueError):
+        single(ring, st.cpu(), 8)
+    rings = torch.zeros((2, 64), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        multi(rings, st, 8)                      # starts not [C, K]
+    with pytest.raises(ValueError):
+        multi(rings, st[None].expand(3, 3).contiguous(), 8)   # C mismatch
+    with pytest.raises(ValueError):
+        multi(rings[:, ::2], st[None].expand(2, 3).contiguous(), 8)
+    with pytest.raises(TypeError):
+        multi(rings, st[None].expand(2, 3).to(torch.int16), 8)
+
+
+def test_gated_buffer_on_card_equals_cpu(dev):
+    """One C = 2 gated buffer at the stock ring (two frames per channel):
+    the card (K3) equals the CPU run, and both decode the payloads."""
+    tx_spec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    rng = np.random.default_rng(3)
+    payload = rng.integers(0, 256, (4, CFG.frame_bytes), dtype=np.uint8)
+    from c_ofdm_tpu_torch.models import tx
+    frames = tx.transmit(tx_spec, torch.from_numpy(payload)).numpy()
+    n = CFG.rx_buf_size * CFG.frame_len
+    block = 0.05 * (rng.standard_normal((2, n))
+                    + 1j * rng.standard_normal((2, n)))
+    for i, (c, s) in enumerate([(0, 1000), (0, 90_000), (1, 17), (1, 150_001)]):
+        block[c, s:s + CFG.frame_len] += 60.0 * frames[i]
+    block = torch.from_numpy(block.astype(np.complex64))
+    outs = {}
+    for where in ("cpu", dev):
+        spec = make_frame_spec(CFG, torch.complex64, device=where)
+        before = extract.extract_windows_multi.launches
+        _, out = streaming.process_buffer(
+            spec, streaming.init_state(spec, channels=2), block.to(where))
+        torch.cuda.synchronize()
+        if where == dev:
+            assert extract.extract_windows_multi.launches == before + 2
+        outs[str(where)] = out
+    cpu, card = outs["cpu"], outs[str(dev)]
+    for name in ("positions", "valid", "num_found"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    valid = cpu.valid
+    assert int(cpu.num_found.sum()) == 4
+    assert torch.equal(card.mac_bytes.cpu()[valid], cpu.mac_bytes[valid])
+    np.testing.assert_array_equal(cpu.mac_bytes[valid].numpy(), payload)

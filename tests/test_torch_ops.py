@@ -368,6 +368,52 @@ def test_sync_matches(kw):
         np.testing.assert_array_equal(_n(okj), okt.numpy())
 
 
+@pytest.mark.parametrize("dtype_name", ["c64", "c128"])
+@pytest.mark.parametrize("kw", [{}, dict(t2sin_size=512)])
+def test_hop_track_matches(kw, dtype_name):
+    """The 50%-overlap detector track of the streaming receiver, on frames
+    at every alignment class to the half blocks (plus all-zero halves):
+    within 1e-9 in complex128, 1e-5 in complex64."""
+    js, ts = _specs(dtype_name, **kw)
+    rng = np.random.default_rng(14)
+    caps, _ = _noisy_captures(js, rng, 3, 3 * js.cfg.frame_len)
+    caps[1, :js.cfg.t2sin_size] = 0.0
+    caps = caps.astype({"c64": np.complex64, "c128": np.complex128}[dtype_name])
+    want = _n(jsync.t2_ratio_track_hop(js, jnp.asarray(caps)))
+    got = tsync.t2_ratio_track_hop(ts, _t(caps)).numpy()
+    assert got.shape == want.shape == (4, 3 * js.cfg.frame_len
+                                       // (js.cfg.t2sin_size // 2) - 1)
+    np.testing.assert_allclose(want, got, rtol=0,
+                               atol=ATOL128 if dtype_name == "c128" else 1e-5)
+
+
+@pytest.mark.parametrize("n", [896, 3000, 30080])
+def test_matched_filter_branches_match(n):
+    """All three branches of matched_filter_scores in complex128: the
+    Toeplitz product (n <= 2048), one FFT pair (next_pow2(n + L) <= 8192)
+    and 4096-point overlap-save beyond; torch.fft against jnp.fft."""
+    js, ts = _specs("c128")
+    rng = np.random.default_rng(15)
+    caps, _ = _noisy_captures(js, rng, 2, max(n, js.cfg.frame_len))
+    x = caps[:, :n]
+    np.testing.assert_allclose(
+        _n(jsync.matched_filter_scores(js, jnp.asarray(x))),
+        tsync.matched_filter_scores(ts, _t(x)).numpy(), rtol=0, atol=ATOL128)
+
+
+def test_sliding_max_and_local_suppression_match():
+    rng = np.random.default_rng(16)
+    track = rng.uniform(0, 1, (3, 500))
+    track[1, 100:140] = 0.0
+    for radius in (0, 1, 2, 5, 64, 600):
+        np.testing.assert_array_equal(
+            _n(jsync.sliding_max(jnp.asarray(track), radius)),
+            tsync.sliding_max(_t(track), radius).numpy())
+        np.testing.assert_array_equal(
+            _n(jsync.suppress_sidelobes_local(jnp.asarray(track), radius)),
+            tsync.suppress_sidelobes_local(_t(track), radius).numpy())
+
+
 def test_first_above_and_peak_refine_match():
     rng = np.random.default_rng(5)
     track = rng.uniform(0, 1, (6, 40))
