@@ -4,10 +4,11 @@ Counterpart of ``c_ofdm_tpu/models/frame.py``.  The JAX package keeps numpy
 constants that XLA bakes into each executable.  Here the same numpy constants
 are kept, and the device constants derived from them (DFT bases incl. the
 hop track's half-block basis and sign, Toeplitz band, overlap-save filter
-spectrum, TX basis and pilot waveform, conjugated preamble, preamble points)
-are built once per (spec, device, dtype) and held as tensors in
-``FrameSpec.tensors``; ``models.modem.FlagshipStep`` and
-``models.streaming.StreamingReceiver`` register them as buffers.
+spectrum, conjugated preamble, preamble points, and the partial-DFT bases and
+pilot waveform of the backends that read them) are built once per (spec,
+device, dtype) and held as tensors in ``FrameSpec.tensors``;
+``models.modem.FlagshipStep`` and ``models.streaming.StreamingReceiver``
+register them as buffers.
 """
 
 from __future__ import annotations
@@ -46,7 +47,10 @@ class FrameSpec:
     cfo_borders: np.ndarray         # [num_pilot_subc+2] int, pilot windows after fftshift
     cfo_window_mask: np.ndarray     # [num_pilot_subc+1] bool, True = use window
     tensors: Dict[str, torch.Tensor]  # device constants, see _build_tensors
-    fft_backend: str = "matmul"     # the only ported backend (ops/fft.py)
+    structured: bool                # canonical segment bin layout (slices,
+    #                                 not gathers, on the full-spectrum path)
+    fft_backend: str = "matmul"     # ops/fft.py BACKENDS (the JAX default
+    #                                 is "xla")
     extract_backend: str = "auto"   # K1 on CUDA tensors, plain gather on CPU
 
     @property
@@ -90,10 +94,15 @@ def _cfo_borders(cfg: ModemConfig):
 
 
 def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
-                   device: torch.device,
-                   dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """Every device constant the batch and streaming receivers read, each
-    rounded once from its float64 numpy value to the working precision."""
+                   device: torch.device, dtype: torch.dtype,
+                   fft_backend: str) -> Dict[str, torch.Tensor]:
+    """Every device constant the batch and streaming receivers read under
+    ``fft_backend``, each rounded once from its float64 numpy value to the
+    working precision (or, for wideband matmul bases, built on the device by
+    ``fft.dft_basis``).  The partial-DFT bases are built only for the
+    backends that read them: ``rx_basis``, ``tx_basis`` and
+    ``tx_pilot_time`` for the matmul backends, ``cfo_basis`` for all but
+    ``xla`` and ``ct*``."""
     rdt = real_dtype(dtype)
 
     def pair(w):
@@ -110,12 +119,9 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
     segs = cfo._cfo_window_segments(arrays["cfo_borders"],
                                     arrays["cfo_window_mask"])
     _, t2_weights = sync._t2_masked_bins(arrays["t2_mask"])
-    tx_w, tx_pilot = chanest._tx_partial_basis_np(
-        cfg.fft_size, arrays["pilot_bins"], arrays["data_bins"],
-        float(cfg.pilot_ampl))
     chan_i, chan_k = chanest._chan_index_np(cfg.num_data_subc)
     hop_basis, hop_sign = sync._t2_hop_np(arrays["t2_mask"])
-    return {
+    tensors = {
         "t2_basis": pair(sync._t2_basis_np(arrays["t2_mask"])),
         "t2_weights": real(t2_weights),
         "t2_hop_basis": pair(hop_basis),
@@ -124,13 +130,8 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
                                              cfg.pr_sin_len)),
         "mf_fft_os": cplx(sync._mf_spectrum_np(arrays["matched_filter"],
                                                sync.OVERLAP_SAVE_LEN)),
-        "cfo_basis": pair(cfo._cfo_basis_np(cfg.preamble_len, segs)),
         "cfo_lo": torch.tensor([lo for lo, _ in segs], dtype=torch.int64,
                                device=device),
-        "rx_basis": pair(chanest._rx_partial_basis_np(
-            cfg.fft_size, arrays["pilot_bins"], arrays["data_bins"])),
-        "tx_basis": pair(tx_w),
-        "tx_pilot_time": cplx(tx_pilot),
         "t2_burst": cplx(arrays["t2_burst"]),
         "preamble_time": cplx(arrays["preamble_time"]),
         "pre_conj": cplx(np.conj(arrays["preamble_time"])),
@@ -138,6 +139,17 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         "chan_i": real(chan_i),
         "chan_k": real(chan_k),
     }
+    if cfo.uses_partial_spectrum(fft_backend):
+        tensors["cfo_basis"] = cfo.cfo_basis(cfg.preamble_len, segs, device,
+                                             rdt)
+    if fft_backend in fft.MATMUL_BACKENDS:
+        tensors["rx_basis"] = chanest.rx_basis(
+            cfg, arrays["pilot_bins"], arrays["data_bins"], device, rdt)
+        tx_w, tx_pilot = chanest.tx_basis(
+            cfg, arrays["pilot_bins"], arrays["data_bins"], device, rdt)
+        tensors["tx_basis"] = tx_w
+        tensors["tx_pilot_time"] = cplx(tx_pilot)
+    return tensors
 
 
 def _spec(cfg: ModemConfig, arrays: Dict[str, np.ndarray], device, dtype,
@@ -155,10 +167,13 @@ def _spec(cfg: ModemConfig, arrays: Dict[str, np.ndarray], device, dtype,
         # semantics); TF32 keeps ~3 decimal digits
         torch.backends.cuda.matmul.allow_tf32 = False
     arrays = {k: np.asarray(arrays[k]) for k in ARRAY_FIELDS}
-    return FrameSpec(cfg=cfg, dtype=dtype, fft_backend=fft_backend,
-                     extract_backend=extract_backend,
-                     tensors=_build_tensors(cfg, arrays, device, dtype),
-                     **arrays)
+    return FrameSpec(
+        cfg=cfg, dtype=dtype, fft_backend=fft_backend,
+        extract_backend=extract_backend,
+        tensors=_build_tensors(cfg, arrays, device, dtype, fft_backend),
+        structured=chanest.layout_is_structured(
+            cfg, arrays["pilot_bins"], arrays["data_bins"]),
+        **arrays)
 
 
 def make_frame_spec(cfg: ModemConfig = None, dtype=torch.complex64, *,
@@ -166,7 +181,9 @@ def make_frame_spec(cfg: ModemConfig = None, dtype=torch.complex64, *,
                     extract_backend: str = "auto") -> FrameSpec:
     """Build a spec from a config, its numpy constants computed by the
     port's own ``oracle.reference``.  ``device`` is required: there is no
-    implicit default device."""
+    implicit default device.  ``fft_backend`` is one of ``ops.fft.BACKENDS``
+    (ValueError otherwise); its default here is "matmul", where the JAX
+    package's is "xla"."""
     cfg = cfg or ModemConfig()
     pilots, data_bins = oracle.subcarrier_maps(cfg)
     borders, wmask = _cfo_borders(cfg)

@@ -311,10 +311,10 @@ def save_state(path, state: StreamState) -> None:
              frames_seen=state.frames_seen.cpu().numpy().astype(np.int32))
 
 
-def load_state(path, device="cpu") -> StreamState:
+def load_state(path, *, device) -> StreamState:
     """Read a checkpoint written by ``save_state`` of either package onto
-    ``device``; the carry becomes complex64 (float32 planes) or complex128
-    (float64 planes)."""
+    ``device`` (required: there is no implicit default device); the carry
+    becomes complex64 (float32 planes) or complex128 (float64 planes)."""
     if isinstance(path, str) and not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as z:

@@ -24,30 +24,51 @@ def _cfo_window_segments(borders: np.ndarray, window_mask: np.ndarray):
             for i in range(len(window_mask)) if window_mask[i]]
 
 
-def _cfo_basis_np(preamble_len: int, segments) -> np.ndarray:
+def cfo_basis(preamble_len: int, segments, device,
+              rdt: torch.dtype) -> torch.Tensor:
     """Partial DFT basis onto the inspected bins of the preamble spectrum:
     fftshifted index j reads unshifted bin (j + ceil(size/2)) % size.
-    [preamble_len, n_inspected]."""
+    [2, preamble_len, n_inspected] (``fft.dft_basis``)."""
     shifted = np.concatenate([np.arange(lo, hi) for lo, hi in segments])
     rows = (shifted + (preamble_len + 1) // 2) % preamble_len
-    return fftops.dft_rows(preamble_len, rows).T
+    return fftops.dft_basis(preamble_len, rows, transpose=True,
+                            device=device, rdt=rdt)
+
+
+def uses_partial_spectrum(backend: str) -> bool:
+    """Whether ``pilot_freq_shift`` projects onto the inspected bins (the
+    spec then holds ``cfo_basis``) rather than transforming the whole
+    preamble: every backend but ``xla`` and ``ct*``.  The ct backends keep
+    the FFT because preamble_len (fft + cp per symbol) is never a power of
+    two, and at wideband sizes the partial product over ~size/2 inspected
+    bins costs more than the rest of the step."""
+    return backend != "xla" and not backend.startswith("ct")
 
 
 def pilot_freq_shift(spec, preamble_sig: torch.Tensor) -> torch.Tensor:
     """Coarse CFO (cycles/sample) from pilot peaks of the fftshifted preamble
     spectrum (`OFDM/Frame.hpp:285-337`).  preamble_sig [..., preamble_len]
-    -> [...].  Projects onto only the bins the peak-search windows inspect,
-    with one partial-DFT product."""
-    fftops.check_backend(spec.fft_backend)
+    -> [...].  ``xla`` and ``ct*``: the full forward FFT (``torch.fft``,
+    whatever the spec's backend), fftshifted, one argmax per window.
+    Others: one full-precision partial-DFT product onto only the bins the
+    peak-search windows inspect."""
     size = spec.cfg.preamble_len
     segs = spec.cfo_segments
-    amp = fftops.complex_matmul(preamble_sig[..., :size],
-                                spec.tensors["cfo_basis"]).abs()
-    peaks = []
-    off = 0
-    for lo, hi in segs:
-        peaks.append(lo + torch.argmax(amp[..., off:off + (hi - lo)], dim=-1))
-        off += hi - lo
+    if uses_partial_spectrum(spec.fft_backend):
+        amp = fftops.complex_matmul(preamble_sig[..., :size],
+                                    spec.tensors["cfo_basis"]).abs()
+        peaks = []
+        off = 0
+        for lo, hi in segs:
+            peaks.append(lo + torch.argmax(amp[..., off:off + (hi - lo)],
+                                           dim=-1))
+            off += hi - lo
+    else:
+        amp = torch.fft.fftshift(fftops.fft_fwd(preamble_sig[..., :size]),
+                                 dim=-1).abs()
+        # argmax returns the first maximum, as jnp.argmax does
+        peaks = [lo + torch.argmax(amp[..., lo:hi], dim=-1)
+                 for lo, hi in segs]
     pk = torch.stack(peaks, dim=-1)                     # [..., n_windows]
     tol = spec.cfg.cfo_outlier_bins
     if tol > 0:

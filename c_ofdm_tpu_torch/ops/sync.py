@@ -50,19 +50,28 @@ def _t2_basis_np(t2_mask: np.ndarray) -> np.ndarray:
 def t2_ratio_track(spec, capture: torch.Tensor,
                    backend: str = "partial") -> torch.Tensor:
     """Per-block masked/total energy ratio.  capture [..., n]; blocks are
-    aligned to the start of the last axis.  Returns [..., n // t2sin_size]."""
-    if backend != "partial":
-        raise NotImplementedError(
-            f"t2_ratio_track backend {backend!r} is not ported yet "
-            f"(ROADMAP.md, Queue 1, 'float64 oracle')")
+    aligned to the start of the last axis.  Returns [..., n // t2sin_size].
+
+    backend "partial": partial DFT onto the masked bins + Parseval (fast).
+    backend "fft":     full per-block FFT (the reference's own track)."""
+    if backend not in ("partial", "fft"):
+        raise ValueError(f"t2_ratio_track backend must be 'partial' or "
+                         f"'fft', got {backend!r}")
     size = spec.cfg.t2sin_size
     nblk = capture.shape[-1] // size
     blocks = capture[..., : nblk * size].reshape(*capture.shape[:-1], nblk, size)
-    s = fftops.complex_matmul(blocks, spec.tensors["t2_basis"])
-    e = s.abs() ** 2
-    masked = (e * spec.tensors["t2_weights"]).sum(-1)
-    # Parseval: sum_k |X_k|^2 == N * sum_n |x_n|^2 for the unnormalized DFT
-    total = size * (blocks.abs() ** 2).sum(-1)
+    if backend == "fft":
+        e = fftops.fft_fwd(blocks).abs() ** 2
+        total = e.sum(-1)
+        mask = torch.as_tensor(spec.t2_mask, dtype=e.dtype, device=e.device)
+        masked = (e * mask).sum(-1)
+    else:
+        s = fftops.complex_matmul(blocks, spec.tensors["t2_basis"])
+        e = s.abs() ** 2
+        masked = (e * spec.tensors["t2_weights"]).sum(-1)
+        # Parseval: sum_k |X_k|^2 == N * sum_n |x_n|^2 for the unnormalized
+        # DFT
+        total = size * (blocks.abs() ** 2).sum(-1)
     return torch.where(total > 0, masked / torch.clamp(total, min=1e-30), 0.0)
 
 

@@ -3,14 +3,19 @@
     python3 chip_smoke.py [--profile FILE]
 
 Needs one CUDA device and nvcc (on PATH or under $CUDA_HOME/bin).  Drives
-two paths of the port, stock ModemConfig, complex64, matmul backend:
-the flagship step (payload -> transmit -> receive_batch, B = 256 frames,
-``FlagshipStep``) and the streaming receiver (``StreamingReceiver``, gated
-sync on the 41-frame ring of 246 656 samples, S = 4 consecutive buffers at
-C = 1, 8 and 64 channels).  Phases, each printing its lines:
+the port's paths, complex64: the flagship step (payload -> transmit ->
+receive_batch, B = 256 frames, ``FlagshipStep``, stock ModemConfig) under
+the matmul backend, under pallas (K4, the dense DFT kernel) and under xla,
+matmul_bf16, ct and ct_bf16; the wideband 8k-QAM64 step under ct (B = 128
+frames of 27 904 samples, bench.py's wideband geometry); and the streaming
+receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
+246 656 samples, S = 4 consecutive buffers at C = 1, 8 and 64 channels,
+and C = 8 under pallas).  Phases, each printing its lines:
 
   1 device    the card, its name and power limit (nvidia-smi)
-  2 build     csrc/extract_windows.cu (K1, K2, K3) built by nvcc for sm_90a
+  2 build     csrc/extract_windows.cu (K1, K2, K3) and csrc/dft.cu (K4),
+              one nvcc each for sm_90a, started together; ptxas registers
+              and spills
   3 kernel    K1 against its plain PyTorch version, bit for bit
   4 clean     B = 256 payloads decode exactly, one K1 launch per step
   5 impaired  B = 256 frames at random offsets with CFO and 30 dB AWGN plus
@@ -31,18 +36,40 @@ C = 1, 8 and 64 channels).  Phases, each printing its lines:
  12 stream-timing  per-buffer median (CUDA events), samples/s, device time
               and idle share at C = 1/8/64; K2/K3 against their plain
               versions at the path's shapes (device time, torch.profiler)
+ 13 pallas-stream  the C = 8 buffers of phase 8 under pallas: every planted
+              frame exact, K4 once and K3 twice per buffer; per-buffer time
+ 14 dft       K4 against dft_ref and the float64 DFT: the step's two shapes
+              (the RX input as the strided CP-stripped view), n = 256 with
+              scale 1/sqrt(n), ragged [1000, 512], leading dims (2, 3, 256),
+              n = 500; error <= 1e-5 max|Y| and <= 4x the plain version's
+ 15 pallas    the flagship step under pallas, B = 256: clean payloads exact
+              with K4 launched 2 times and K1 once per step; phase 5's
+              impaired captures exact at their planted offsets; sync and
+              bytes equal to the port's CPU run; step timing
+ 16 backends  the step under xla, matmul_bf16, ct and ct_bf16: clean
+              payloads exact, K4 never launched; step median
+ 17 wideband  the 8k-QAM64 step under ct, B = 128: clean payloads exact;
+              random offsets in [0, 4096], CFO 1e-5, amplitude 10, 30 dB
+              decode exactly at their offsets; 4 rows equal to the CPU run;
+              step timing
+ 18 dft-timing  K4 at the step's two shapes: device time beside its bound
+              (a DFT's bytes and FFT operations) and the dense product's
+              floor (8·M·n² operations), the plain version, torch.fft (the library call) and complex
+              torch.matmul with the cached W (torch.profiler)
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  ``--profile FILE`` also writes a
-torch.profiler table of 10 flagship steps to FILE and one of 10 streaming
-buffers at each C to FILE.stream_c<C>.
+torch.profiler table of 10 flagship steps to FILE, one of 10 streaming
+buffers at each C to FILE.stream_c<C>, and one of 10 steps each of the
+pallas and wideband steps to FILE.pallas and FILE.wideband.
 """
 
 import argparse
 import io
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -51,6 +78,14 @@ import numpy as np
 import torch
 
 B = 256            # frames per step (bench.py's flagship batch)
+B_WIDE = 128       # wideband frames per step (bench.py::bench_wideband)
+EXTRA_WIDE = 4096  # wideband captures are frame_len + EXTRA_WIDE samples
+WIDEBAND = dict(fft_size=8192, num_data_subc=4096, num_pilot_subc=32,
+                cp_size=1024, num_symb=2, pr_sin_len=512, mod_type=6)
+OTHER_BACKENDS = ("xla", "matmul_bf16", "ct", "ct_bf16")
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
 EXTRA = 1024       # impaired captures are frame_len + EXTRA samples
 ZERO_ROWS = 4
 SEED = 0
@@ -124,17 +159,26 @@ def phase_device():
 
 
 def phase_build():
-    from c_ofdm_tpu_torch.ops import _kernels, extract
+    """Phase 2: one nvcc per kernel source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from c_ofdm_tpu_torch.ops import _kernels, dft, extract
     t0 = time.perf_counter()
-    extract._lib()
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(extract._lib), pool.submit(dft._lib)]:
+            f.result()
     secs = time.perf_counter() - t0
-    log = _kernels.library_path("extract_windows").with_suffix(".log")
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln] if log.exists() else [])
-    say("build", f"K1-K3 built/loaded in {secs:.2f} s "
-        f"({_kernels.library_path('extract_windows').name})")
-    for ln in ptxas:
-        say("build", f"ptxas: {ln}")
+    for name, ids in (("extract_windows", "K1-K3"), ("dft", "K4")):
+        lib = _kernels.library_path(name)
+        log = lib.with_suffix(".log")
+        say("build", f"{ids}: {lib.name}")
+        for ln in (log.read_text().splitlines() if log.exists() else []):
+            if "registers" in ln or "spill" in ln:
+                say("build", f"{ids} ptxas: {ln.strip()}")
+    say("build", f"both built and loaded in {secs:.2f} s")
+
+
+def bytes_ms(nbytes):
+    return nbytes / HBM_BYTES_S * 1e3
 
 
 def _kernel_cases(dev):
@@ -320,7 +364,8 @@ def run_streaming(dev, profile=None):
     from c_ofdm_tpu_torch.models import streaming
     from c_ofdm_tpu_torch.ops import extract
     cfg = ModemConfig()
-    spec = make_frame_spec(cfg, torch.complex64, device=dev)
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="matmul")
     buf = cfg.rx_buf_size * cfg.frame_len
     data = {C: streaming_buffers(spec, C, SEED + 10 + C) for C in CHANNELS}
     torch.cuda.synchronize()
@@ -358,7 +403,8 @@ def run_streaming(dev, profile=None):
         len(CHANNELS) - 1), f"streaming launches {launches}")
 
     # ---- 9: the same buffers through the port's plain CPU run
-    cpu_spec = make_frame_spec(cfg, torch.complex64, device="cpu")
+    cpu_spec = make_frame_spec(cfg, torch.complex64, device="cpu",
+                               fft_backend="matmul")
     for C in CPU_CHANNELS:
         rxc = streaming.StreamingReceiver(cpu_spec,
                                           channels=0 if C == 1 else C)
@@ -399,9 +445,51 @@ def run_streaming(dev, profile=None):
         f"set_sync_debug_mode('error') with no host synchronisation")
 
     # ---- 12: timing
-    kernel_ms, plain_ms = stream_timing(spec, data, profile)
+    kernel_ms, plain_ms, bound = stream_timing(spec, data, profile)
+
+    # ---- 13: the same C = 8 buffers under pallas (K4 in the demod)
+    run_pallas_stream(dev, data[STATE_C])
     return {"launches": launches, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound}
+
+
+def run_pallas_stream(dev, data):
+    """Phase 13: S consecutive C = 8 buffers under fft_backend="pallas":
+    every planted frame exact, K4 launched once (the demod of C·41·9
+    symbols) and K3 twice per buffer; per-buffer median and device time."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.models import streaming
+    from c_ofdm_tpu_torch.ops import dft, extract
+    C = STATE_C
+    cfg = ModemConfig()
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    blocks, truth = data
+    rxr = streaming.StreamingReceiver(spec, channels=C)
+    outs, per_buf = [], []
+    for blk in blocks:
+        before = (dft.dft.launches, extract.extract_windows_multi.launches)
+        outs.append(rxr.feed(blk))
+        per_buf.append((dft.dft.launches - before[0],
+                        extract.extract_windows_multi.launches - before[1]))
+    torch.cuda.synchronize()
+    check(all(p == (1, 2) for p in per_buf),
+          f"pallas C={C}: (K4, K3) launches per buffer {per_buf}, want (1, 2)")
+    n_frames = check_truth(spec, outs, truth, C)
+    step = itertools.count()
+
+    def feed(_):
+        rxr.feed(blocks[next(step) % S])
+
+    ms = [cuda_ms(feed, 1) for _ in range(12)]
+    med = statistics.median(ms)
+    dev_ms, _ = device_ms(feed, 8)
+    buf = cfg.rx_buf_size * cfg.frame_len
+    say("pallas-stream", f"C={C}: {S} buffers, {n_frames} planted frames "
+        f"decoded exactly once, in order, at their planted starts; (K4, K3) "
+        f"launches per buffer {per_buf}; per buffer median {med:.4f} ms "
+        f"({C * buf / (med * 1e-3):.4g} samples/s), device {dev_ms:.4f} ms "
+        f"(idle {1 - dev_ms / med:.1%})")
 
 
 def stream_timing(spec, data, profile=None):
@@ -477,6 +565,8 @@ def stream_timing(spec, data, profile=None):
                     wall[key].append(cuda_ms(fns[key], 100))
                     devt[key].append(device_ms(fns[key], 32)[0])
             moved = 2 * C * k * win * 8
+            totals[(C, "bound")] = totals.get((C, "bound"), 0.0) + bytes_ms(
+                moved + C * k * 4)
             for key in ("kernel", "plain"):
                 d = statistics.median(devt[key])
                 totals[(C, key)] = totals.get((C, key), 0.0) + d
@@ -488,37 +578,342 @@ def stream_timing(spec, data, profile=None):
                     f"us per call with host dispatch")
         say("stream-timing", f"{'K2' if C == 1 else 'K3'} C={C}, both "
             f"launches of one buffer: kernel {totals[(C, 'kernel')]:.5f} ms, "
-            f"plain {totals[(C, 'plain')]:.5f} ms (device)")
+            f"plain {totals[(C, 'plain')]:.5f} ms (device), bound "
+            f"{totals[(C, 'bound')]:.5f} ms (bytes)")
     return ({"single": totals[(1, "kernel")], "multi": totals[(8, "kernel")]},
-            {"single": totals[(1, "plain")], "multi": totals[(8, "plain")]})
+            {"single": totals[(1, "plain")], "multi": totals[(8, "plain")]},
+            {"single": totals[(1, "bound")], "multi": totals[(8, "bound")]})
 
 
-def impaired_captures(frames, rng):
-    """frames [B, frame_len] complex -> captures [B + ZERO_ROWS,
-    frame_len + EXTRA] complex64 (numpy) and the planted offsets: each
-    frame at a random offset, amplitude 40, CFO 1e-4 cycles/sample, AWGN
-    at 30 dB SNR (as __graft_entry__.py builds its impaired streams), then
-    ZERO_ROWS all-zero rows."""
+def impaired_captures(frames, rng, extra=EXTRA, amp=40.0, cfo=1e-4,
+                      zero_rows=ZERO_ROWS):
+    """frames [B, frame_len] complex -> captures [B + zero_rows,
+    frame_len + extra] complex64 (numpy) and the planted offsets: each
+    frame at a random offset in [0, extra], amplitude ``amp``, CFO ``cfo``
+    cycles/sample, AWGN at 30 dB SNR (as __graft_entry__.py builds its
+    impaired streams), then ``zero_rows`` all-zero rows."""
     nb, flen = frames.shape
-    n = flen + EXTRA
-    offs = rng.integers(0, EXTRA + 1, nb)
-    caps = np.zeros((nb + ZERO_ROWS, n), np.complex128)
+    n = flen + extra
+    offs = rng.integers(0, extra + 1, nb)
+    caps = np.zeros((nb + zero_rows, n), np.complex128)
     for b in range(nb):
-        caps[b, offs[b]:offs[b] + flen] = frames[b] * 40.0
-    caps[:nb] *= np.exp(2j * np.pi * 1e-4 * np.arange(n))
-    std = np.sqrt(float((np.abs(frames) ** 2).mean()) * 40.0 ** 2
+        caps[b, offs[b]:offs[b] + flen] = frames[b] * amp
+    caps[:nb] *= np.exp(2j * np.pi * cfo * np.arange(n))
+    std = np.sqrt(float((np.abs(frames) ** 2).mean()) * amp ** 2
                   * 10 ** (-30.0 / 10) / 2)
     caps[:nb] += std * (rng.standard_normal((nb, n))
                         + 1j * rng.standard_normal((nb, n)))
     return caps.astype(np.complex64), offs
 
 
+def time_step(phase, step, payload, samples, reps=30):
+    """Step median over ``reps`` runs (CUDA events), samples/s, and the
+    device time and idle share over 10 steps (torch.profiler).  Returns
+    (median ms, device ms, profiler events)."""
+    for _ in range(5):
+        step(payload)
+    torch.cuda.synchronize()
+    step_ms = [cuda_ms(lambda i: step(payload), 1) for _ in range(reps)]
+    med = statistics.median(step_ms)
+    dev_ms, events = device_ms(lambda i: step(payload), 10)
+    say(phase, f"step (TX+RX, B={payload.shape[0]}): median {med:.4f} ms "
+        f"over {len(step_ms)} runs (min {min(step_ms):.4f}, max "
+        f"{max(step_ms):.4f}), {samples / (med * 1e-3):.4g} samples/s; "
+        f"device time {dev_ms:.4f} ms (kernel sum, torch.profiler over 10 "
+        f"steps): device idle {1 - dev_ms / med:.1%} of the step")
+    return med, dev_ms, events
+
+
+def write_profile(path, events, what):
+    """The profiler table of ``events`` (by device time) to ``path``."""
+    with open(path, "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
+    say("profile", f"{what} -> {path}")
+
+
+def check_impaired(phase, step, cpu_step, caps_np, offs, payload_np,
+                   launches, cpu_rows=None):
+    """Receive impaired captures [B + zero rows, n] on the card: every
+    frame found at its planted offset with exact bytes, no frame in a zero
+    row, the kernel launches ``launches`` (a dict of wrappers -> count);
+    sync fields and found rows' bytes equal to the port's CPU run on the
+    first ``cpu_rows`` rows (all by default)."""
+    nb = payload_np.shape[0]
+    caps = torch.from_numpy(caps_np).to(step.spec.device)
+    before = {f: f.launches for f in launches}
+    res, s = step.receive(caps)
+    torch.cuda.synchronize()
+    for f, want in launches.items():
+        check(f.launches - before[f] == want,
+              f"{phase}: {f.__name__} launched {f.launches - before[f]} "
+              f"times, not {want}")
+    found = s.found.cpu().numpy()
+    fs = s.frame_start.cpu().numpy()
+    got = res.mac_bytes.cpu().numpy()
+    check(found[:nb].all(), f"{phase}: {int((~found[:nb]).sum())} frames lost")
+    check(not found[nb:].any(), f"{phase}: a frame found in an all-zero row")
+    check(np.array_equal(fs[:nb], offs),
+          f"{phase}: frame_start != planted offset on "
+          f"{int((fs[:nb] != offs).sum())} rows")
+    check(np.array_equal(got[:nb], payload_np), f"{phase}: payload mismatch")
+    rows = slice(None, cpu_rows)
+    res_c, s_c = cpu_step.receive(torch.from_numpy(caps_np[rows]))
+    for name in ("frame_start", "t2_begin", "pr_begin", "found"):
+        check(np.array_equal(getattr(s, name).cpu().numpy()[rows],
+                             getattr(s_c, name).numpy()),
+              f"{phase}: {name} differs from the CPU run")
+    fc = found[rows]
+    check(np.array_equal(got[rows][fc], res_c.mac_bytes.numpy()[fc]),
+          f"{phase}: mac_bytes differ from the CPU run")
+    diff = (res.constellation.cpu().numpy()[rows][fc]
+            - res_c.constellation.numpy()[fc])
+    return int(fc.sum()), float(np.abs(diff).max()) if diff.size else 0.0
+
+
+def run_dft_checks(dev):
+    """Phase 14: K4 against dft_ref and the float64 DFT of the same
+    complex64 input.  Returns the worst |K4 - dft_ref|."""
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.ops import dft
+    cfg = ModemConfig()
+    nsym = cfg.num_pr_symb + cfg.num_symb
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def randc(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, device=dev,
+                           generator=g)
+
+    rx = randc(B, nsym * cfg.ofdm_len).reshape(B, nsym, cfg.ofdm_len)
+    cases = [
+        ("RX view", rx[..., cfg.cp_size:], -1, 1.0),
+        ("TX", randc(B, cfg.num_symb, cfg.fft_size), +1, 1.0),
+        ("n=256 scaled", randc(512, 256), +1, 1.0 / 16),
+        ("ragged", randc(1000, 512), -1, 1.0),
+        ("leading dims", randc(2, 3, 256), -1, 1.0),
+        ("n=500", randc(77, 500), +1, 1.0),
+    ]
+    worst = 0.0
+    for label, x, sign, scale in cases:
+        got = dft.dft(x, sign, scale)
+        plain = dft.dft_ref(x, sign, scale)
+        x64 = x.to(torch.complex128)
+        want = (torch.fft.fft(x64) if sign < 0
+                else torch.fft.ifft(x64) * x.shape[-1]) * scale
+        torch.cuda.synchronize()
+        ymax = float(want.abs().max())
+        err = float((got.to(torch.complex128) - want).abs().max())
+        err_p = float((plain.to(torch.complex128) - want).abs().max())
+        diff = float((got - plain).abs().max())
+        worst = max(worst, diff)
+        check(got.shape == x.shape and got.dtype == torch.complex64,
+              f"K4 {label}: output {tuple(got.shape)} {got.dtype}")
+        check(err <= 1e-5 * ymax and err <= 4 * err_p,
+              f"K4 {label}: max abs err {err:.3e} vs the float64 DFT, plain "
+              f"{err_p:.3e}, max|Y| {ymax:.3e} (need <= 1e-5 max|Y| and "
+              f"<= 4x plain)")
+        say("dft", f"K4 {label} {tuple(x.shape)} sign {sign:+d} scale "
+            f"{scale:.4g}: max abs err vs float64 {err:.3e} "
+            f"({err / ymax:.2e} of max|Y|), plain {err_p:.3e}; "
+            f"|K4 - plain| {diff:.3e}")
+    return worst
+
+
+def run_pallas_step(dev, payload_np, caps_np, offs, profile=None):
+    """Phase 15: the flagship step under pallas.  Returns (K4 launches in
+    the clean step, step median ms, device ms)."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    from c_ofdm_tpu_torch.ops import dft, extract
+    cfg = ModemConfig()
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend="pallas"))
+    payload = torch.from_numpy(payload_np).to(dev)
+    # ---- the main path of K4, counts from 0
+    dft.dft.launches = 0
+    extract.extract_windows.launches = 0
+    res, s = step(payload)
+    torch.cuda.synchronize()
+    k4, k1 = dft.dft.launches, extract.extract_windows.launches
+    check((k4, k1) == (2, 1),
+          f"pallas step: K4 launched {k4} times and K1 {k1}, want 2 and 1")
+    check(torch.equal(res.mac_bytes, payload), "pallas step: payload mismatch")
+    check(bool(s.found.all()) and not bool(s.frame_start.any()),
+          "pallas step: a clean frame not found at 0")
+    say("pallas", f"clean B={B}: payloads exact, K4 launches {k4} (TX "
+        f"[{B * cfg.num_symb},{cfg.fft_size}] and RX "
+        f"[{B * (cfg.num_pr_symb + cfg.num_symb)},{cfg.fft_size}]), K1 {k1}")
+    cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
+                                            device="cpu",
+                                            fft_backend="pallas"))
+    n_found, err = check_impaired(
+        "pallas", step, cpu_step, caps_np, offs, payload_np,
+        {dft.dft: 1, extract.extract_windows: 1})
+    say("pallas", f"impaired B={B}+{ZERO_ROWS}: all frames at their planted "
+        f"offsets, payloads exact, zero rows not found, K4 once in the "
+        f"receive; sync and bytes of the {n_found} found rows equal to the "
+        f"CPU run (constellation max abs diff {err:.3g})")
+    med, dev_ms, events = time_step("pallas", step, payload,
+                                    B * cfg.frame_len)
+    if profile:
+        write_profile(f"{profile}.pallas", events, "10 pallas steps")
+    return k4, med, dev_ms
+
+
+def run_backends(dev, payload_np):
+    """Phase 16: the stock step under the other full-spectrum and bf16
+    backends: clean payloads exact, K4 never launched."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    from c_ofdm_tpu_torch.ops import dft
+    cfg = ModemConfig()
+    payload = torch.from_numpy(payload_np).to(dev)
+    for backend in OTHER_BACKENDS:
+        step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                            fft_backend=backend))
+        before = dft.dft.launches
+        res, s = step(payload)
+        torch.cuda.synchronize()
+        check(dft.dft.launches == before, f"{backend}: K4 launched")
+        check(torch.equal(res.mac_bytes, payload) and bool(s.found.all()),
+              f"{backend}: clean payloads not decoded exactly")
+        for _ in range(3):
+            step(payload)
+        ms = statistics.median(cuda_ms(lambda i: step(payload), 1)
+                               for _ in range(10))
+        say("backends", f"{backend}: B={B} payloads exact, K4 never "
+            f"launched; step median {ms:.4f} ms over 10 runs")
+
+
+def run_wideband(dev, profile=None):
+    """Phase 17: the 8k-QAM64 step under ct at B = 128.  Returns (step
+    median ms, device ms)."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.models import tx
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    from c_ofdm_tpu_torch.ops import dft, extract
+    cfg = ModemConfig(**WIDEBAND)
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="ct")
+    step = FlagshipStep(spec)
+    rng = np.random.default_rng(SEED + 5)
+    payload_np = rng.integers(0, 256, (B_WIDE, cfg.frame_bytes),
+                              dtype=np.uint8)
+    payload = torch.from_numpy(payload_np).to(dev)
+    before = dft.dft.launches
+    res, s = step(payload)
+    torch.cuda.synchronize()
+    check(torch.equal(res.mac_bytes, payload) and bool(s.found.all())
+          and not bool(s.frame_start.any()),
+          "wideband: clean payloads not decoded exactly")
+    say("wideband", f"clean B={B_WIDE} frames of {cfg.frame_len} samples "
+        f"(fft {cfg.fft_size}, QAM{1 << cfg.mod_type}, ct): payloads exact")
+    frames = tx.transmit(step.bound_spec(), payload).cpu().numpy()
+    caps_np, offs = impaired_captures(frames.astype(np.complex128), rng,
+                                      extra=EXTRA_WIDE, amp=10.0, cfo=1e-5,
+                                      zero_rows=0)
+    cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
+                                            device="cpu", fft_backend="ct"))
+    n_cpu, err = check_impaired("wideband", step, cpu_step, caps_np, offs,
+                                payload_np, {extract.extract_windows: 1},
+                                cpu_rows=4)
+    check(dft.dft.launches == before, "wideband: K4 launched under ct")
+    say("wideband", f"impaired B={B_WIDE} captures of {caps_np.shape[1]} "
+        f"samples, offsets {int(offs.min())}..{int(offs.max())}, CFO 1e-5, "
+        f"30 dB: all frames at their planted offsets, payloads exact; "
+        f"{n_cpu} rows equal to the CPU run (constellation max abs diff "
+        f"{err:.3g})")
+    med, dev_ms, events = time_step("wideband", step, payload,
+                                    B_WIDE * cfg.frame_len, reps=20)
+    if profile:
+        write_profile(f"{profile}.wideband", events, "10 wideband steps")
+    return med, dev_ms
+
+
+def dft_timing(dev):
+    """Phase 18: K4 at the pallas step's two shapes (device time,
+    torch.profiler) against its bound, its plain version, the library call
+    (torch.fft.fft for sign -1; torch.fft.ifft with norm="forward", the
+    unnormalized backward transform, for sign +1) and complex torch.matmul
+    with the cached W.  The bound is that of the function, a DFT: x read
+    and y written once at the HBM rate, against the radix-2 FFT's
+    5·M·n·log2(n) operations at the float32 rate; the dense product's own
+    floor (8·M·n² at the float32 rate) is printed beside it.  Returns
+    per-step sums {kernel, plain, library, bound, dense} in ms and
+    ``bound_by``."""
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.ops import dft
+    cfg = ModemConfig()
+    nsym = cfg.num_pr_symb + cfg.num_symb
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    sig = torch.randn(B, nsym * cfg.ofdm_len, dtype=torch.complex64,
+                      device=dev, generator=g)
+    shapes = (("TX", torch.randn(B, cfg.num_symb, cfg.fft_size,
+                                 dtype=torch.complex64, device=dev,
+                                 generator=g), +1),
+              ("RX", sig.reshape(B, nsym, cfg.ofdm_len)[..., cfg.cp_size:],
+               -1))
+    totals = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
+              "dense": 0.0}
+    limits = {"bytes": 0.0, "operations": 0.0}
+    for label, x, sign in shapes:
+        n = x.shape[-1]
+        m = x.numel() // n
+        w = dft.dft_planes(n, sign, 1.0, dev)
+        wc = torch.complex(w[0], w[1])
+        x2 = x.reshape(m, n)
+        lib = ((lambda i: torch.fft.fft(x)) if sign < 0
+               else (lambda i: torch.fft.ifft(x, norm="forward")))
+        fns = {"kernel": lambda i: dft.dft(x, sign),
+               "plain": lambda i: dft.dft_ref(x, sign),
+               "library": lib,
+               "matmul": lambda i: x2 @ wc}
+        for fn in fns.values():
+            cuda_ms(fn, 8)
+        devt = {k: [] for k in fns}
+        for order in (tuple(fns), tuple(reversed(fns))):
+            for k in order:
+                devt[k].append(device_ms(fns[k], 20)[0])
+        med = {k: statistics.median(v) for k, v in devt.items()}
+        nbytes = 2 * m * n * 8
+        fft_flops = 5 * m * n * math.log2(n)
+        dense_flops = 8 * m * n * n
+        by = {"bytes": bytes_ms(nbytes),
+              "operations": fft_flops / FP32_FLOP_S * 1e3}
+        bound = max(by.values())
+        dense = dense_flops / FP32_FLOP_S * 1e3
+        for k in ("kernel", "plain", "library"):
+            totals[k] += med[k]
+        totals["bound"] += bound
+        totals["dense"] += dense
+        for k in by:
+            limits[k] += by[k]
+        say("dft-timing", f"K4 {label} [{m},{n}] sign {sign:+d}: kernel "
+            f"{med['kernel'] * 1e3:.3f} us, {bound / med['kernel']:.1%} of the "
+            f"bound {bound * 1e3:.3f} us ({nbytes / 1e6:.1f} MB of x and y at "
+            f"3.35 TB/s; {fft_flops / 1e6:.1f} MFLOP of an FFT at 67 TFLOP/s "
+            f"fp32), {dense / med['kernel']:.1%} of the dense product's floor "
+            f"{dense * 1e3:.3f} us ({dense_flops / 1e9:.2f} GFLOP, "
+            f"{dense_flops / (med['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s); "
+            f"plain {med['plain'] * 1e3:.3f} us; library (torch.fft) "
+            f"{med['library'] * 1e3:.3f} us; complex torch.matmul with W "
+            f"{med['matmul'] * 1e3:.3f} us (device, median of 2 profiled runs "
+            f"of 20)")
+    totals["bound_by"] = max(limits, key=limits.get)
+    say("dft-timing", f"K4 per pallas step (TX + RX): kernel "
+        f"{totals['kernel']:.5f} ms, plain {totals['plain']:.5f} ms, library "
+        f"{totals['library']:.5f} ms, bound {totals['bound']:.5f} ms "
+        f"({totals['bound_by']}), dense product's floor "
+        f"{totals['dense']:.5f} ms")
+    return totals
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
                     help="also write torch.profiler tables of 10 flagship "
-                         "steps (FILE) and 10 streaming buffers "
-                         "(FILE.stream_c<C>)")
+                         "steps (FILE), 10 streaming buffers "
+                         "(FILE.stream_c<C>) and 10 pallas and wideband "
+                         "steps (FILE.pallas, FILE.wideband)")
     args = ap.parse_args()
 
     dev = phase_device()
@@ -533,7 +928,8 @@ def main():
 
     # ---- 4: main path, clean
     cfg = ModemConfig()
-    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev))
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend="matmul"))
     rng = np.random.default_rng(SEED)
     payload_np = rng.integers(0, 256, (B, cfg.frame_bytes), dtype=np.uint8)
     payload = torch.from_numpy(payload_np).to(dev)
@@ -551,52 +947,20 @@ def main():
     # ---- 5: main path, impaired, against the port's plain CPU run
     frames = tx.transmit(step.bound_spec(), payload).cpu().numpy()
     caps_np, offs = impaired_captures(frames.astype(np.complex128), rng)
-    caps = torch.from_numpy(caps_np).to(dev)
-    extract.extract_windows.launches = 0
-    res, s = step.receive(caps)
-    torch.cuda.synchronize()
-    check(extract.extract_windows.launches == 1,
-          "impaired batch: K1 not launched exactly once")
-    found = s.found.cpu().numpy()
-    fs = s.frame_start.cpu().numpy()
-    got = res.mac_bytes.cpu().numpy()
-    check(found[:B].all(), f"impaired: {int((~found[:B]).sum())} frames lost")
-    check(not found[B:].any(), "impaired: a frame found in an all-zero row")
-    check(np.array_equal(fs[:B], offs),
-          f"impaired: frame_start != planted offset on "
-          f"{int((fs[:B] != offs).sum())} rows")
-    check(np.array_equal(got[:B], payload_np), "impaired: payload mismatch")
-    cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu"))
-    res_c, s_c = cpu_step.receive(torch.from_numpy(caps_np))
-    for name in ("frame_start", "t2_begin", "pr_begin", "found"):
-        check(np.array_equal(getattr(s, name).cpu().numpy(),
-                             getattr(s_c, name).numpy()),
-              f"impaired: {name} differs from the CPU run")
-    check(np.array_equal(got[found], res_c.mac_bytes.numpy()[found]),
-          "impaired: mac_bytes differ from the CPU run")
+    cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
+                                            device="cpu",
+                                            fft_backend="matmul"))
+    check_impaired("impaired", step, cpu_step, caps_np, offs, payload_np,
+                   {extract.extract_windows: 1})
     say("impaired", f"B={B}+{ZERO_ROWS} captures of {caps_np.shape[1]} "
         f"samples, offsets {int(offs.min())}..{int(offs.max())}: all frames "
         f"found at their planted offsets, payloads exact, zero rows not "
         f"found, sync and bytes equal to the CPU run")
 
     # ---- 6: timing
-    for _ in range(5):
-        step(payload)
-    torch.cuda.synchronize()
-    step_ms = [cuda_ms(lambda i: step(payload), 1) for _ in range(30)]
-    med = statistics.median(step_ms)
-    say("timing", f"step (TX+RX, B={B}): median {med:.4f} ms over "
-        f"{len(step_ms)} runs (min {min(step_ms):.4f}, max "
-        f"{max(step_ms):.4f}), {B * cfg.frame_len / (med * 1e-3):.4g} "
-        f"samples/s")
-    dev_ms, events = device_ms(lambda i: step(payload), 10)
-    say("timing", f"step device time {dev_ms:.4f} ms (kernel sum, "
-        f"torch.profiler over 10 steps): device idle {1 - dev_ms / med:.1%} "
-        f"of the step")
+    _, _, events = time_step("timing", step, payload, B * cfg.frame_len)
     if args.profile:
-        with open(args.profile, "w") as f:
-            f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
-        say("profile", f"10 steps -> {args.profile}")
+        write_profile(args.profile, events, "10 steps")
 
     win = cfg.preamble_len + cfg.message_len
     # 8 input sets (~98 MB) so each launch finds its input outside the
@@ -618,16 +982,27 @@ def main():
             devt[k].append(device_ms(fns[k], 64)[0])
     k_ms, p_ms = (statistics.median(devt[k]) for k in ("kernel", "plain"))
     moved = 2 * B * win * 8
+    k1_bound = bytes_ms(moved + B * 4)
     for k, ms in (("kernel", k_ms), ("plain gather", p_ms)):
         w = statistics.median(wall["kernel" if k == "kernel" else "plain"])
         say("timing", f"K1 [{B},{cfg.frame_len}]->[{B},{win}] c64, {k}: "
             f"device {ms * 1e3:.3f} us ({moved / (ms * 1e-3) / 1e9:.1f} GB/s "
             f"effective, {moved / (ms * 1e-3) / 3.35e12:.1%} of 3.35 TB/s); "
-            f"{w * 1e3:.2f} us per call with host dispatch")
+            f"{w * 1e3:.2f} us per call with host dispatch; bound "
+            f"{k1_bound * 1e3:.3f} us (bytes)")
 
-    # ---- 7-12: the streaming receiver
+    # ---- 7-13: the streaming receiver
     ring_err = run_ring_kernel_checks(dev)
     stream = run_streaming(dev, args.profile)
+
+    # ---- 14-18: K4, the pallas step, the other backends, wideband
+    dft_err = run_dft_checks(dev)
+    k4_launches, _, _ = run_pallas_step(dev, payload_np, caps_np, offs,
+                                        args.profile)
+    run_backends(dev, payload_np)
+    run_wideband(dev, args.profile)
+    k4 = dft_timing(dev)
+
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"
     print(json.dumps({"kernels": [{
         "name": "extract_windows",
@@ -638,6 +1013,9 @@ def main():
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": k1_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "extract_windows_single",
         "route": "cuda",
@@ -647,6 +1025,9 @@ def main():
         "max_abs_err": ring_err["single"],
         "ms": stream["kernel_ms"]["single"],
         "plain_ms": stream["plain_ms"]["single"],
+        "bound_ms": stream["bound_ms"]["single"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }, {
         "name": "extract_windows_multi",
         "route": "cuda",
@@ -656,6 +1037,21 @@ def main():
         "max_abs_err": ring_err["multi"],
         "ms": stream["kernel_ms"]["multi"],
         "plain_ms": stream["plain_ms"]["multi"],
+        "bound_ms": stream["bound_ms"]["multi"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "dft",
+        "route": "cuda",
+        "source": "c_ofdm_tpu_torch/csrc/dft.cu",
+        "replaces": "c_ofdm_tpu/ops/pallas_fft.py:41",
+        "launches": k4_launches,
+        "max_abs_err": dft_err,
+        "ms": k4["kernel"],
+        "plain_ms": k4["plain"],
+        "bound_ms": k4["bound"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -197,8 +197,8 @@ def test_flagship_buffers_follow_module_to():
 
 def test_unported_branches_raise():
     spec = make_frame_spec(ModemConfig(), torch.complex64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_frame_spec(ModemConfig(), device="cpu", fft_backend="xla")
+    with pytest.raises(ValueError, match="fft_backend"):
+        make_frame_spec(ModemConfig(), device="cpu", fft_backend="fftw")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tsync.find_t2sin(spec, torch.zeros((1, 6016), dtype=torch.complex64),
                          start=5)
@@ -211,8 +211,8 @@ def test_unported_branches_raise():
 def test_port_never_imports_jax():
     """The port's package imports torch and numpy only: no source file
     imports jax, and building + running the flagship step and a streaming
-    buffer in a fresh interpreter leaves jax and the JAX package out of
-    sys.modules."""
+    buffer, and a pallas-backend step, in a fresh interpreter leaves jax and
+    the JAX package out of sys.modules."""
     pattern = re.compile(r"^\s*(import jax|from jax|import c_ofdm_tpu\b|"
                          r"from c_ofdm_tpu\b|from c_ofdm_tpu\.)", re.M)
     sources = sorted((REPO / "c_ofdm_tpu_torch").rglob("*.py"))
@@ -235,6 +235,11 @@ def test_port_never_imports_jax():
         "out = StreamingReceiver(spec, channels=2).feed(torch.zeros("
         "(2, 2 * spec.cfg.frame_len), dtype=torch.complex64))\n"
         "assert not bool(out.valid.any())\n"
+        "pspec = c_ofdm_tpu_torch.make_frame_spec(device='cpu',"
+        " fft_backend='pallas')\n"
+        "res, s = FlagshipStep(pspec)(torch.zeros((2, pspec.cfg.frame_bytes),"
+        " dtype=torch.uint8))\n"
+        "assert bool(s.found.all())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'c_ofdm_tpu'))\n"
         "assert not bad, bad\n")

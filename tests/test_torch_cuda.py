@@ -1,5 +1,6 @@
-"""The port on the card: K1, K2 and K3 against their plain versions, the
-flagship step and one gated streaming buffer.
+"""The port on the card: K1, K2, K3 and K4 against their plain versions,
+the flagship step (matmul and pallas backends) and one gated streaming
+buffer.
 
 Every test here needs CUDA and skips without it.  This file imports no jax,
 so it also runs where jax is not installed:
@@ -14,7 +15,7 @@ import torch
 from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
 from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
-from c_ofdm_tpu_torch.ops import extract
+from c_ofdm_tpu_torch.ops import dft, extract, fft
 
 pytestmark = pytest.mark.cuda
 
@@ -25,7 +26,7 @@ WIN = CFG.preamble_len + CFG.message_len
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1-K3 are CUDA kernels with no CPU "
+        pytest.skip("needs a CUDA device: K1-K4 are CUDA kernels with no CPU "
                     "mode")
     return torch.device("cuda", torch.cuda.current_device())
 
@@ -175,3 +176,89 @@ def test_gated_buffer_on_card_equals_cpu(dev):
     assert int(cpu.num_found.sum()) == 4
     assert torch.equal(card.mac_bytes.cpu()[valid], cpu.mac_bytes[valid])
     np.testing.assert_array_equal(cpu.mac_bytes[valid].numpy(), payload)
+
+
+def _dft64(x, sign, scale):
+    x64 = x.to(torch.complex128)
+    y = torch.fft.fft(x64) if sign < 0 else torch.fft.ifft(x64) * x.shape[-1]
+    return y * scale
+
+
+@pytest.mark.parametrize("case", ["rx_view", "tx", "ragged", "n500_scaled"])
+def test_dft_kernel_matches_plain_version(dev, case):
+    """K4 at the flagship step's shapes (the RX input is the strided
+    CP-stripped view, row stride 640), a ragged row count and a size that is
+    no multiple of the tile, against dft_ref and the float64 DFT: within
+    1e-5·max|Y| and within 4x the plain version's own error."""
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randc(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, device=dev,
+                           generator=g)
+
+    sign, scale = -1, 1.0
+    if case == "rx_view":
+        x = randc(256, 9 * 640).reshape(256, 9, 640)[..., 128:]
+    elif case == "tx":
+        x, sign = randc(256, 8, 512), +1
+    elif case == "ragged":
+        x = randc(1000, 512)
+    else:
+        x, scale = randc(3, 77, 500), 1.0 / np.sqrt(500)
+    before = dft.dft.launches
+    got = dft.dft(x, sign, scale)
+    plain = dft.dft_ref(x, sign, scale)
+    torch.cuda.synchronize()
+    assert dft.dft.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.complex64
+    want = _dft64(x, sign, scale)
+    err = float((got.to(torch.complex128) - want).abs().max())
+    err_plain = float((plain.to(torch.complex128) - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+    assert err <= 4 * err_plain
+
+
+def test_dft_kernel_rejects_what_it_does_not_take(dev):
+    with pytest.raises(TypeError):
+        dft.dft(torch.zeros((4, 64), dtype=torch.complex128, device=dev))
+    with pytest.raises(TypeError):
+        dft.dft(torch.zeros((4, 64), dtype=torch.float32, device=dev))
+
+
+def test_pallas_flagship_step_on_card(dev):
+    """B = 8 under fft_backend="pallas": K4 launched twice (TX and RX), K1
+    once, payloads exact and equal to the CPU run."""
+    payload = np.random.default_rng(5).integers(
+        0, 256, (8, CFG.frame_bytes), dtype=np.uint8)
+    spec = make_frame_spec(CFG, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    before = (dft.dft.launches, extract.extract_windows.launches)
+    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+    torch.cuda.synchronize()
+    assert (dft.dft.launches, extract.extract_windows.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert bool(s.found.all()) and not bool(s.frame_start.any())
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    cpu = FlagshipStep(make_frame_spec(CFG, torch.complex64, device="cpu",
+                                       fft_backend="pallas"))
+    res_c, _ = cpu(torch.from_numpy(payload))
+    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
+
+
+def test_pallas_complex128_takes_torch_fft(dev):
+    """complex128 under pallas: the xla branch (torch.fft), never K4, in
+    the transforms and in a whole step."""
+    x = torch.randn(6, 512, dtype=torch.complex128, device=dev)
+    before = dft.dft.launches
+    y = fft.fft_fwd(x, "pallas")
+    z = fft.ifft_unnorm(x, "pallas")
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.fft.fft(x))
+    assert torch.equal(z, torch.fft.ifft(x) * 512)
+    spec = make_frame_spec(CFG, torch.complex128, device=dev,
+                           fft_backend="pallas")
+    payload = torch.zeros((2, CFG.frame_bytes), dtype=torch.uint8, device=dev)
+    res, s = FlagshipStep(spec)(payload)
+    torch.cuda.synchronize()
+    assert dft.dft.launches == before
+    assert torch.equal(res.mac_bytes, payload) and bool(s.found.all())

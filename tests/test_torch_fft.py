@@ -1,0 +1,335 @@
+"""CPU parity of the port's FFT layer (``ops/fft.py``, ``ops/dft.py`` and the
+full-spectrum branches of ``ops/chanest.py``, ``ops/cfo.py`` and
+``ops/sync.py``) against the JAX package, on the same numpy-seeded inputs.
+
+Tolerances, each with its reason:
+
+* complex128 transforms within atol 1e-10·n (as tests/test_jax_ops.py holds
+  ``ct_dft`` against ``jnp.fft``): exact DFTs summed in other orders;
+* K4's plain version against ``dft_pallas`` (interpret mode, as
+  tests/test_pallas_fft.py runs it) within 1e-5·max|Y|: both are float32
+  dots of the same float32 twiddle planes, summed in another order;
+* the bf16 backends in complex128 within 1e-10·n too: both packages round
+  the same operands to the same bfloat16 values and sum in float64;
+* slices, reshapes and gathers of bins exactly.
+
+The matmul backends are compared up to n = 512: their full 8192-point
+basis is a 1 GiB float64 host matrix in either package.  The pallas backend
+takes the ``xla`` branch for complex128 in both packages; its complex64
+path (K4's plain version here) is held against ``dft_pallas``.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from c_ofdm_tpu import ModemConfig as JModemConfig
+from c_ofdm_tpu.models import frame as jframe
+from c_ofdm_tpu.ops import cfo as jcfo
+from c_ofdm_tpu.ops import chanest as jchanest
+from c_ofdm_tpu.ops import fft as jfft
+from c_ofdm_tpu.ops import sync as jsync
+from c_ofdm_tpu.ops.pallas_fft import _dft_planes, dft_pallas
+
+from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+from c_ofdm_tpu_torch.models import frame as tframe
+from c_ofdm_tpu_torch.ops import cfo as tcfo
+from c_ofdm_tpu_torch.ops import chanest as tchanest
+from c_ofdm_tpu_torch.ops import dft as tdft
+from c_ofdm_tpu_torch.ops import fft as tfft
+from c_ofdm_tpu_torch.ops import sync as tsync
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+ATOL128 = 1e-9
+# stock, and a 1k geometry with 16 pilots
+GEOMETRIES = [{}, dict(fft_size=1024, num_data_subc=512, num_pilot_subc=16,
+                       cp_size=256, num_symb=4)]
+FULL_SPECTRUM = ("xla", "ct", "ct_bf16", "pallas")
+
+
+def _crandn(rng, shape, dtype=np.complex128):
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(dtype)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))    # a writable copy
+
+
+def _specs(backend, dtype_name="c128", **kw):
+    jdt, tdt = {"c64": (jnp.complex64, torch.complex64),
+                "c128": (jnp.complex128, torch.complex128)}[dtype_name]
+    js = jframe.make_frame_spec(JModemConfig(**kw), dtype=jdt,
+                                fft_backend=backend)
+    ts = make_frame_spec(ModemConfig(**kw), tdt, device=CPU,
+                         fft_backend=backend)
+    return js, ts
+
+
+# ------------------------------------------------------------ K4 (ops/dft)
+
+
+@pytest.mark.parametrize("n", [256, 512])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_dft_plain_version_matches_dft_pallas(n, sign, scaled):
+    scale = 1.0 / np.sqrt(n) if scaled else 1.0
+    x = _crandn(np.random.default_rng(n + sign), (8, n), np.complex64)
+    want = np.asarray(dft_pallas(jnp.asarray(x), sign=sign, scale=scale))
+    got = tdft.dft_ref(_t(x), sign, scale)
+    assert got.dtype == torch.complex64 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    ref = (np.fft.fft(x.astype(np.complex128)) if sign < 0
+           else np.fft.ifft(x.astype(np.complex128)) * n) * scale
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+def test_dft_leading_dims_and_wrapper_on_cpu():
+    """Leading dims (2, 3, 256) against dft_pallas; on CPU tensors the
+    wrapper is the plain version (no launch), also for strided and
+    conjugated views; other devices raise."""
+    rng = np.random.default_rng(0)
+    x = _crandn(rng, (2, 3, 256), np.complex64)
+    want = np.asarray(dft_pallas(jnp.asarray(x)))
+    before = tdft.dft.launches
+    got = tdft.dft(_t(x))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    sig = _t(_crandn(rng, (4, 3, 320), np.complex64))
+    view = sig[..., 64:]                       # rows of stride 320
+    assert torch.equal(tdft.dft(view, +1), tdft.dft_ref(view.contiguous(), +1))
+    assert torch.equal(tdft.dft(view.conj()),
+                       tdft.dft_ref(view.conj().resolve_conj()))
+    assert tdft.dft.launches == before
+    w = tdft.dft_planes(256, -1, 1.0, CPU)
+    assert w is tdft.dft_planes(256, -1, 1.0, CPU)        # built once
+    for sign, scale in ((-1, 1.0), (1, 1 / 16)):
+        np.testing.assert_array_equal(
+            tdft.dft_planes(256, sign, scale, CPU).numpy(),
+            np.stack(_dft_planes(256, sign, scale)))
+    with pytest.raises(ValueError, match="no kernel"):
+        tdft.dft(torch.zeros((2, 8), dtype=torch.complex64, device="meta"))
+
+
+# -------------------------------------------------------------- backends
+
+
+_SIZES = [(b, n) for b in tfft.BACKENDS for n in (64, 512, 8192)
+          if not (b in tfft.MATMUL_BACKENDS and n == 8192)]
+
+
+@pytest.mark.parametrize("backend,n", _SIZES)
+def test_fft_backends_match_jax_c128(backend, n):
+    x = _crandn(np.random.default_rng(n), (3, n))
+    for jfn, tfn, ref in ((jfft.fft_fwd, tfft.fft_fwd, np.fft.fft(x)),
+                          (jfft.ifft_unnorm, tfft.ifft_unnorm,
+                           np.fft.ifft(x) * n)):
+        want = np.asarray(jfn(jnp.asarray(x), backend))
+        got = tfn(_t(x), backend)
+        assert got.dtype == torch.complex128
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-10 * n)
+        if not backend.endswith("bf16"):
+            np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                       atol=1e-10 * n)
+
+
+@pytest.mark.parametrize("n", [64, 512])
+def test_pallas_backend_c64_matches_jax(n):
+    """complex64 under pallas: K4's plain version against the JAX pallas
+    branch (dft_pallas in interpret mode), both directions."""
+    x = _crandn(np.random.default_rng(n), (5, n), np.complex64)
+    for jfn, tfn in ((jfft.fft_fwd, tfft.fft_fwd),
+                     (jfft.ifft_unnorm, tfft.ifft_unnorm)):
+        want = np.asarray(jfn(jnp.asarray(x), "pallas"))
+        got = tfn(_t(x), "pallas")
+        assert got.dtype == torch.complex64
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def test_ct_dft_and_bf16_products():
+    """ct_dft equals the numpy FFT; it refuses sizes that are not powers of
+    two with ValueError; complex_matmul(bf16=True) equals the product of
+    the bfloat16-rounded operands in float64 (complex64 input, float32 sums)
+    and the JAX bf16 product."""
+    rng = np.random.default_rng(7)
+    for n in (2, 128, 8192):
+        x = _crandn(rng, (2, n))
+        np.testing.assert_allclose(tfft.ct_dft(_t(x), -1).numpy(),
+                                   np.fft.fft(x), rtol=0, atol=1e-10 * n)
+        np.testing.assert_allclose(tfft.ct_dft(_t(x), +1).numpy(),
+                                   np.fft.ifft(x) * n, rtol=0, atol=1e-10 * n)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tfft.ct_dft(torch.zeros((1, 500), dtype=torch.complex64), -1)
+    x = _crandn(rng, (4, 3, 256), np.complex64)
+    w = _crandn(rng, (256, 40))
+    got = tfft.complex_matmul(_t(x), tfft.basis_pair(w, CPU, torch.float32),
+                              bf16=True).numpy()
+
+    def bf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            torch.bfloat16).to(torch.float64).numpy()
+
+    xr, xi = bf(x.real), bf(x.imag)
+    wr, wi = bf(w.real.astype(np.float32)), bf(w.imag.astype(np.float32))
+    exact = (xr @ wr - xi @ wi) + 1j * (xr @ wi + xi @ wr)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-5 * np.abs(exact).max())
+    want = np.asarray(jfft.complex_matmul(jnp.asarray(x), w, bf16=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    assert np.abs(got - x @ w).max() > 1e-3 * np.abs(exact).max()  # rounded
+
+
+def test_dft_basis_host_and_device_paths():
+    """Below 2^23 elements dft_basis is the float64 numpy rows rounded once;
+    at or above it the device path (int32 phase index, one cos/sin pass)
+    matches the numpy rows in float64 and the JAX device path in float32;
+    past 32768 points it raises ValueError."""
+    rng = np.random.default_rng(8)
+    rows = rng.choice(512, 40, replace=False)
+    small = tfft.dft_basis(512, rows, +1, scale=0.5, transpose=True,
+                           device=CPU, rdt=torch.float64)
+    np.testing.assert_array_equal(
+        small.numpy(), tfft.basis_pair((tfft.dft_rows(512, rows, +1) * 0.5).T,
+                                       CPU, torch.float64).numpy())
+    n = 8192
+    rows = np.arange(n // 8) * 7 + 3                  # n * rows = 2^23
+    assert n * rows.size == tfft.DEVICE_BASIS_MIN_ELEMS
+    big = tfft.dft_basis(n, rows, -1, scale=0.25, device=CPU,
+                         rdt=torch.float64)
+    # numpy's rows take cos/sin of phases up to 2π·7163 rad (~5e-12 of
+    # float64 rounding); the device path reduces r*k mod n exactly first
+    want = tfft.dft_rows(n, rows, -1) * 0.25
+    np.testing.assert_allclose(big[0].numpy(), want.real, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(big[1].numpy(), want.imag, rtol=0, atol=1e-10)
+    big32 = tfft.dft_basis(n, rows, -1, transpose=True, device=CPU,
+                           rdt=torch.float32)
+    jr, ji = jfft.dft_basis(n, rows, -1, transpose=True, rdt=jnp.float32)
+    np.testing.assert_allclose(big32[0].numpy(), np.asarray(jr), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(big32[1].numpy(), np.asarray(ji), rtol=0,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="int32"):
+        tfft.dft_basis(65536, np.arange(128), device=CPU, rdt=torch.float32)
+
+
+def test_check_backend_names():
+    for b in tfft.BACKENDS:
+        tfft.check_backend(b)
+    for bad in ("fftw", "MATMUL", "", "pallas_bf16"):
+        with pytest.raises(ValueError, match="fft_backend"):
+            tfft.check_backend(bad)
+        with pytest.raises(ValueError):
+            tfft.fft_fwd(torch.zeros(8, dtype=torch.complex64), bad)
+
+
+# ------------------------------------------------------ bins and symbols
+
+
+@pytest.mark.parametrize("kw", GEOMETRIES)
+def test_bin_assembly_and_split_match_jax_and_gathers(kw):
+    js, ts = _specs("xla", **kw)
+    cfg = js.cfg
+    assert ts.structured
+    rng = np.random.default_rng(9)
+    data = _crandn(rng, (2, 3, cfg.num_data_subc))
+    fj = np.asarray(jchanest.tx_assemble_freq(js, jnp.asarray(data)))
+    ft = tchanest.tx_assemble_freq(ts, _t(data)).numpy()
+    np.testing.assert_array_equal(fj, ft)
+    lookup = np.concatenate([np.full((2, 3, 1), cfg.pilot_ampl), data,
+                             np.zeros((2, 3, 1))], axis=-1)
+    np.testing.assert_array_equal(ft, lookup[..., tchanest._tx_bin_maps(ts)])
+    np.testing.assert_array_equal(tchanest._tx_bin_maps(ts),
+                                  jchanest._tx_bin_maps(js))
+    freq = _crandn(rng, (2, 3, cfg.fft_size))
+    pj, dj = jchanest.rx_split_bins(js, jnp.asarray(freq))
+    pt, dt = tchanest.rx_split_bins(ts, _t(freq))
+    np.testing.assert_array_equal(np.asarray(pj), pt.numpy())
+    np.testing.assert_array_equal(np.asarray(dj), dt.numpy())
+    np.testing.assert_array_equal(pt.numpy(), freq[..., ts.pilot_bins])
+    np.testing.assert_array_equal(dt.numpy(), freq[..., ts.data_bins])
+
+
+def _permuted(js, ts):
+    """The same specs with the data bins in another order: a non-canonical
+    layout, which takes the gather branches."""
+    perm = np.random.default_rng(10).permutation(js.data_bins)
+    jp = dataclasses.replace(js, data_bins=perm.astype(np.int32))
+    arrays = {k: getattr(ts, k) for k in tframe.ARRAY_FIELDS}
+    arrays["data_bins"] = perm.astype(np.int32)
+    tp = tframe.frame_spec_from_arrays(
+        dataclasses.asdict(ts.cfg), arrays, device=CPU, dtype=ts.dtype,
+        fft_backend=ts.fft_backend)
+    assert not tp.structured and not jchanest._structured(jp)
+    return jp, tp
+
+
+@pytest.mark.parametrize("layout", ["canonical", "permuted"])
+@pytest.mark.parametrize("backend", tfft.BACKENDS)
+def test_symbol_transforms_match_jax(backend, layout):
+    """ofdm_modulate and bins_transform (complex128) under every backend:
+    partial DFT for the matmul backends, full spectrum plus slices (the
+    canonical layout) or gathers (a permuted one) for the others."""
+    js, ts = _specs(backend)
+    if layout == "permuted":
+        js, ts = _permuted(js, ts)
+    cfg = js.cfg
+    rng = np.random.default_rng(11)
+    points = _crandn(rng, (3, cfg.num_symb * cfg.num_data_subc))
+    tj = np.asarray(jchanest.ofdm_modulate(js, jnp.asarray(points),
+                                           cfg.num_symb))
+    tt = tchanest.ofdm_modulate(ts, _t(points), cfg.num_symb).numpy()
+    np.testing.assert_allclose(tj, tt, rtol=0, atol=ATOL128)
+    syms = tj[..., cfg.cp_size:] + 0.01 * _crandn(rng, tj[..., cfg.cp_size:].shape)
+    pj, dj = jchanest.bins_transform(js, jnp.asarray(syms))
+    pt, dt = tchanest.bins_transform(ts, _t(syms))
+    np.testing.assert_allclose(np.asarray(pj), pt.numpy(), rtol=0, atol=ATOL128)
+    np.testing.assert_allclose(np.asarray(dj), dt.numpy(), rtol=0, atol=ATOL128)
+
+
+@pytest.mark.parametrize("backend", FULL_SPECTRUM + ("matmul",))
+def test_pilot_freq_shift_matches_jax(backend):
+    """The coarse CFO: the full fftshifted spectrum under xla and ct*
+    (torch.fft whatever the spec's backend), the full-precision partial
+    product under the others; complex128 and complex64."""
+    for dtype_name, atol in (("c128", 1e-12), ("c64", 1e-7)):
+        js, ts = _specs(backend, dtype_name)
+        assert ("cfo_basis" in ts.tensors) == (backend in ("matmul", "pallas"))
+        cfg = js.cfg
+        rng = np.random.default_rng(12)
+        k = np.arange(cfg.preamble_len)
+        sig = (np.tile(js.preamble_time, (4, 1))
+               * np.exp(2j * np.pi * np.array([[0.0], [3e-4], [-2e-3],
+                                               [7e-3]]) * k)
+               + 0.05 * _crandn(rng, (4, cfg.preamble_len)))
+        sig = sig.astype(np.complex128 if dtype_name == "c128"
+                         else np.complex64)
+        want = np.asarray(jcfo.pilot_freq_shift(js, jnp.asarray(sig)))
+        got = tcfo.pilot_freq_shift(ts, _t(sig)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_t2_fft_track_matches_jax():
+    """t2_ratio_track(backend="fft"): the full per-block FFT track."""
+    js, ts = _specs("xla")
+    cfg = js.cfg
+    rng = np.random.default_rng(13)
+    cap = 0.1 * _crandn(rng, (2, 20 * cfg.t2sin_size + 17))
+    cap[:, 5 * cfg.t2sin_size:6 * cfg.t2sin_size] += js.t2_burst
+    want = np.asarray(jsync.t2_ratio_track(js, jnp.asarray(cap), "fft"))
+    got = tsync.t2_ratio_track(ts, _t(cap), "fft").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL128)
+    part = tsync.t2_ratio_track(ts, _t(cap)).numpy()
+    np.testing.assert_allclose(got, part, rtol=0, atol=1e-9)
+    jb, jf = jsync.find_t2sin(js, jnp.asarray(cap[0]), backend="fft")
+    tb, tf = tsync.find_t2sin(ts, _t(cap), backend="fft")
+    assert int(tb[0]) == int(jb) == 5 * cfg.t2sin_size and bool(tf[0])
+    with pytest.raises(ValueError, match="partial"):
+        tsync.t2_ratio_track(ts, _t(cap), "dense")

@@ -250,11 +250,11 @@ def test_complex_matmul_and_partial_dft_match():
         tfft.partial_dft(_t(x), rows).numpy(), rtol=0, atol=ATOL128)
     np.testing.assert_allclose(
         _n(jfft.fft_fwd(jnp.asarray(x), "matmul")),
-        tfft.fft_fwd(_t(x)).numpy(), rtol=0, atol=ATOL128)
+        tfft.fft_fwd(_t(x), "matmul").numpy(), rtol=0, atol=ATOL128)
     np.testing.assert_allclose(
         _n(jfft.ifft_unnorm(jnp.asarray(x), "matmul")),
-        tfft.ifft_unnorm(_t(x)).numpy(), rtol=0, atol=ATOL128)
-    np.testing.assert_allclose(tfft.fft_fwd(_t(x)).numpy(),
+        tfft.ifft_unnorm(_t(x), "matmul").numpy(), rtol=0, atol=ATOL128)
+    np.testing.assert_allclose(tfft.fft_fwd(_t(x), "matmul").numpy(),
                                np.fft.fft(x), rtol=0, atol=ATOL128)
 
 

@@ -342,7 +342,7 @@ def test_state_files_cross_packages(direction, C, tmp_path):
     if direction == "jax_to_port":
         _, jstate = _run_jax(js, blocks[:2], C=C)
         jst.save_state(path, jstate)
-        state = tst.load_state(path)
+        state = tst.load_state(path, device="cpu")
         assert state.carry.dtype == torch.complex64
         resumed, _ = _run_port(ts, blocks[2:], state=state)
         _assert_same(jouts[2:], resumed, "c64")
