@@ -5,7 +5,7 @@
 Needs one CUDA device and nvcc (on PATH or under $CUDA_HOME/bin).  Drives
 the port's paths, complex64: the flagship step (payload -> transmit ->
 receive_batch, B = 256 frames, ``FlagshipStep``, stock ModemConfig) under
-the matmul backend, under pallas (K4, the dense DFT kernel) and under xla,
+the matmul backend, under pallas (K4, the DFT kernel) and under xla,
 matmul_bf16, ct and ct_bf16; the wideband 8k-QAM64 step under ct (B = 128
 frames of 27 904 samples, bench.py's wideband geometry); and the streaming
 receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
@@ -13,9 +13,9 @@ receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 and C = 8 under pallas).  Phases, each printing its lines:
 
   1 device    the card, its name and power limit (nvidia-smi)
-  2 build     csrc/extract_windows.cu (K1, K2, K3) and csrc/dft.cu (K4),
-              one nvcc each for sm_90a, started together; ptxas registers
-              and spills
+  2 build     csrc/extract_windows.cu (K1, K2, K3) and csrc/dft.cu (K4's
+              radix and dense routes), one nvcc each for sm_90a, started
+              together; ptxas registers and spills
   3 kernel    K1 against its plain PyTorch version, bit for bit
   4 clean     B = 256 payloads decode exactly, one K1 launch per step
   5 impaired  B = 256 frames at random offsets with CFO and 30 dB AWGN plus
@@ -37,15 +37,18 @@ and C = 8 under pallas).  Phases, each printing its lines:
               and idle share at C = 1/8/64; K2/K3 against their plain
               versions at the path's shapes (device time, torch.profiler)
  13 pallas-stream  the C = 8 buffers of phase 8 under pallas: every planted
-              frame exact, K4 once and K3 twice per buffer; per-buffer time
+              frame exact, K4 once (radix route) and K3 twice per buffer;
+              per-buffer time
  14 dft       K4 against dft_ref and the float64 DFT: the step's two shapes
               (the RX input as the strided CP-stripped view), n = 256 with
               scale 1/sqrt(n), ragged [1000, 512], leading dims (2, 3, 256),
-              n = 500; error <= 1e-5 max|Y| and <= 4x the plain version's
+              n = 500 (dense route), n = 64, 1024 scaled and 8192; error
+              <= 1e-5 max|Y| and <= 4x the plain version's; radix cases
+              also within 1e-6 max|Y| of dft_radix_ref; the route each took
  15 pallas    the flagship step under pallas, B = 256: clean payloads exact
-              with K4 launched 2 times and K1 once per step; phase 5's
-              impaired captures exact at their planted offsets; sync and
-              bytes equal to the port's CPU run; step timing
+              with K4 launched 2 times (both radix) and K1 once per step;
+              phase 5's impaired captures exact at their planted offsets;
+              sync and bytes equal to the port's CPU run; step timing
  16 backends  the step under xla, matmul_bf16, ct and ct_bf16: clean
               payloads exact, K4 never launched; step median
  17 wideband  the 8k-QAM64 step under ct, B = 128: clean payloads exact;
@@ -53,9 +56,11 @@ and C = 8 under pallas).  Phases, each printing its lines:
               decode exactly at their offsets; 4 rows equal to the CPU run;
               step timing
  18 dft-timing  K4 at the step's two shapes: device time beside its bound
-              (a DFT's bytes and FFT operations) and the dense product's
-              floor (8·M·n² operations), the plain version, torch.fft (the library call) and complex
-              torch.matmul with the cached W (torch.profiler)
+              (a DFT's bytes and FFT operations), dft_radix_ref, the plain
+              version, torch.fft (the library call) and complex torch.matmul
+              with the cached W (torch.profiler), with the L2 warm (one
+              input) and cold (12 inputs in turn); the dense route once at
+              [2304, 500]
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -86,6 +91,11 @@ OTHER_BACKENDS = ("xla", "matmul_bf16", "ct", "ct_bf16")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+L2_BYTES = 50e6
+# the radix K4 against dft_radix_ref: the same passes and twiddles, each
+# butterfly rounded in its own order (a few float32 ulps of max|Y| per pass)
+RADIX_REF_TOL = 1e-6
+COLD_SETS = 12     # input sets per shape in phase 18's cold-L2 timing
 EXTRA = 1024       # impaired captures are frame_len + EXTRA samples
 ZERO_ROWS = 4
 SEED = 0
@@ -468,13 +478,16 @@ def run_pallas_stream(dev, data):
     rxr = streaming.StreamingReceiver(spec, channels=C)
     outs, per_buf = [], []
     for blk in blocks:
-        before = (dft.dft.launches, extract.extract_windows_multi.launches)
+        before = (dft.dft.radix_launches, dft.dft.dense_launches,
+                  extract.extract_windows_multi.launches)
         outs.append(rxr.feed(blk))
-        per_buf.append((dft.dft.launches - before[0],
-                        extract.extract_windows_multi.launches - before[1]))
+        per_buf.append((dft.dft.radix_launches - before[0],
+                        dft.dft.dense_launches - before[1],
+                        extract.extract_windows_multi.launches - before[2]))
     torch.cuda.synchronize()
-    check(all(p == (1, 2) for p in per_buf),
-          f"pallas C={C}: (K4, K3) launches per buffer {per_buf}, want (1, 2)")
+    check(all(p == (1, 0, 2) for p in per_buf),
+          f"pallas C={C}: (radix K4, dense K4, K3) launches per buffer "
+          f"{per_buf}, want (1, 0, 2)")
     n_frames = check_truth(spec, outs, truth, C)
     step = itertools.count()
 
@@ -486,10 +499,10 @@ def run_pallas_stream(dev, data):
     dev_ms, _ = device_ms(feed, 8)
     buf = cfg.rx_buf_size * cfg.frame_len
     say("pallas-stream", f"C={C}: {S} buffers, {n_frames} planted frames "
-        f"decoded exactly once, in order, at their planted starts; (K4, K3) "
-        f"launches per buffer {per_buf}; per buffer median {med:.4f} ms "
-        f"({C * buf / (med * 1e-3):.4g} samples/s), device {dev_ms:.4f} ms "
-        f"(idle {1 - dev_ms / med:.1%})")
+        f"decoded exactly once, in order, at their planted starts; (radix "
+        f"K4, dense K4, K3) launches per buffer {per_buf}; per buffer median "
+        f"{med:.4f} ms ({C * buf / (med * 1e-3):.4g} samples/s), device "
+        f"{dev_ms:.4f} ms (idle {1 - dev_ms / med:.1%})")
 
 
 def stream_timing(spec, data, profile=None):
@@ -672,7 +685,10 @@ def check_impaired(phase, step, cpu_step, caps_np, offs, payload_np,
 
 def run_dft_checks(dev):
     """Phase 14: K4 against dft_ref and the float64 DFT of the same
-    complex64 input.  Returns the worst |K4 - dft_ref|."""
+    complex64 input, and on the radix route against dft_radix_ref (the
+    kernel's passes in plain PyTorch, within RADIX_REF_TOL·max|Y|: the two
+    differ only in the rounding of each butterfly); each case on the route
+    ``dft._route`` names.  Returns the worst |K4 - dft_ref|."""
     from c_ofdm_tpu_torch import ModemConfig
     from c_ofdm_tpu_torch.ops import dft
     cfg = ModemConfig()
@@ -691,15 +707,25 @@ def run_dft_checks(dev):
         ("ragged", randc(1000, 512), -1, 1.0),
         ("leading dims", randc(2, 3, 256), -1, 1.0),
         ("n=500", randc(77, 500), +1, 1.0),
+        ("n=64", randc(4099, 64), -1, 1.0),
+        ("n=1024 scaled", randc(333, 1024), +1, 1.0 / 32),
+        ("n=8192", randc(37, 8192), -1, 1.0),
     ]
     worst = 0.0
     for label, x, sign, scale in cases:
+        route = dft._route(x.shape[-1])
+        before = (dft.dft.radix_launches, dft.dft.dense_launches)
         got = dft.dft(x, sign, scale)
+        counts = (dft.dft.radix_launches - before[0],
+                  dft.dft.dense_launches - before[1])
         plain = dft.dft_ref(x, sign, scale)
         x64 = x.to(torch.complex128)
         want = (torch.fft.fft(x64) if sign < 0
                 else torch.fft.ifft(x64) * x.shape[-1]) * scale
         torch.cuda.synchronize()
+        check(counts == ((1, 0) if route == "radix" else (0, 1)),
+              f"K4 {label}: (radix, dense) launches {counts} on the {route} "
+              f"route")
         ymax = float(want.abs().max())
         err = float((got.to(torch.complex128) - want).abs().max())
         err_p = float((plain.to(torch.complex128) - want).abs().max())
@@ -711,10 +737,17 @@ def run_dft_checks(dev):
               f"K4 {label}: max abs err {err:.3e} vs the float64 DFT, plain "
               f"{err_p:.3e}, max|Y| {ymax:.3e} (need <= 1e-5 max|Y| and "
               f"<= 4x plain)")
+        vs_radix = ""
+        if route == "radix":
+            d = float((got - dft.dft_radix_ref(x, sign, scale)).abs().max())
+            check(d <= RADIX_REF_TOL * ymax,
+                  f"K4 {label}: |K4 - dft_radix_ref| {d:.3e} > "
+                  f"{RADIX_REF_TOL:g} max|Y| ({ymax:.3e})")
+            vs_radix = f", |K4 - dft_radix_ref| {d / ymax:.2e} of max|Y|"
         say("dft", f"K4 {label} {tuple(x.shape)} sign {sign:+d} scale "
-            f"{scale:.4g}: max abs err vs float64 {err:.3e} "
+            f"{scale:.4g}, {route} route: max abs err vs float64 {err:.3e} "
             f"({err / ymax:.2e} of max|Y|), plain {err_p:.3e}; "
-            f"|K4 - plain| {diff:.3e}")
+            f"|K4 - plain| {diff:.3e}{vs_radix}")
     return worst
 
 
@@ -729,27 +762,34 @@ def run_pallas_step(dev, payload_np, caps_np, offs, profile=None):
                                         fft_backend="pallas"))
     payload = torch.from_numpy(payload_np).to(dev)
     # ---- the main path of K4, counts from 0
-    dft.dft.launches = 0
+    dft.dft.launches = dft.dft.radix_launches = dft.dft.dense_launches = 0
     extract.extract_windows.launches = 0
     res, s = step(payload)
     torch.cuda.synchronize()
     k4, k1 = dft.dft.launches, extract.extract_windows.launches
+    routes = (dft.dft.radix_launches, dft.dft.dense_launches)
     check((k4, k1) == (2, 1),
           f"pallas step: K4 launched {k4} times and K1 {k1}, want 2 and 1")
+    check(routes == (2, 0), f"pallas step: (radix, dense) K4 launches "
+          f"{routes}, want (2, 0)")
     check(torch.equal(res.mac_bytes, payload), "pallas step: payload mismatch")
     check(bool(s.found.all()) and not bool(s.frame_start.any()),
           "pallas step: a clean frame not found at 0")
     say("pallas", f"clean B={B}: payloads exact, K4 launches {k4} (TX "
         f"[{B * cfg.num_symb},{cfg.fft_size}] and RX "
-        f"[{B * (cfg.num_pr_symb + cfg.num_symb)},{cfg.fft_size}]), K1 {k1}")
+        f"[{B * (cfg.num_pr_symb + cfg.num_symb)},{cfg.fft_size}]; radix "
+        f"{routes[0]}, dense {routes[1]}), K1 {k1}")
     cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
                                             device="cpu",
                                             fft_backend="pallas"))
+    radix_before = dft.dft.radix_launches
     n_found, err = check_impaired(
         "pallas", step, cpu_step, caps_np, offs, payload_np,
         {dft.dft: 1, extract.extract_windows: 1})
+    check(dft.dft.radix_launches == radix_before + 1,
+          "pallas impaired receive: K4 not launched on the radix route")
     say("pallas", f"impaired B={B}+{ZERO_ROWS}: all frames at their planted "
-        f"offsets, payloads exact, zero rows not found, K4 once in the "
+        f"offsets, payloads exact, zero rows not found, K4 once (radix) in the "
         f"receive; sync and bytes of the {n_found} found rows equal to the "
         f"CPU run (constellation max abs diff {err:.3g})")
     med, dev_ms, events = time_step("pallas", step, payload,
@@ -831,80 +871,117 @@ def run_wideband(dev, profile=None):
 
 def dft_timing(dev):
     """Phase 18: K4 at the pallas step's two shapes (device time,
-    torch.profiler) against its bound, its plain version, the library call
+    torch.profiler) against its bound, dft_radix_ref (the radix kernel's
+    passes in plain PyTorch), its plain version dft_ref, the library call
     (torch.fft.fft for sign -1; torch.fft.ifft with norm="forward", the
     unnormalized backward transform, for sign +1) and complex torch.matmul
-    with the cached W.  The bound is that of the function, a DFT: x read
-    and y written once at the HBM rate, against the radix-2 FFT's
-    5·M·n·log2(n) operations at the float32 rate; the dense product's own
-    floor (8·M·n² at the float32 rate) is printed beside it.  Returns
-    per-step sums {kernel, plain, library, bound, dense} in ms and
-    ``bound_by``."""
+    with the cached W, under two L2 conditions: warm (one input, reused by
+    every call; 17-19 MB stays in the 50 MB L2) and cold (COLD_SETS inputs
+    in turn, over 100 MB per shape, so each call finds its input outside
+    the L2, as after a fresh capture).  The bound is that of the function,
+    a DFT: x read and y written once at the HBM rate, against the radix-2
+    FFT's 5·M·n·log2(n) operations at the float32 rate; the dense product's
+    floor (8·M·n² at the float32 rate) is printed beside it.  Then the
+    dense route once at [2304, 500], warm.  Returns {"warm": sums, "cold":
+    sums} of per-step ms {kernel, radix_ref, plain, library, matmul}, and
+    "bound", "bound_by", "dense" (per step)."""
     from c_ofdm_tpu_torch import ModemConfig
     from c_ofdm_tpu_torch.ops import dft
     cfg = ModemConfig()
     nsym = cfg.num_pr_symb + cfg.num_symb
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    sig = torch.randn(B, nsym * cfg.ofdm_len, dtype=torch.complex64,
-                      device=dev, generator=g)
-    shapes = (("TX", torch.randn(B, cfg.num_symb, cfg.fft_size,
-                                 dtype=torch.complex64, device=dev,
-                                 generator=g), +1),
-              ("RX", sig.reshape(B, nsym, cfg.ofdm_len)[..., cfg.cp_size:],
-               -1))
-    totals = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0,
-              "dense": 0.0}
+
+    def make(label):
+        if label == "TX":
+            return torch.randn(B, cfg.num_symb, cfg.fft_size,
+                               dtype=torch.complex64, device=dev, generator=g)
+        sig = torch.randn(B, nsym * cfg.ofdm_len, dtype=torch.complex64,
+                          device=dev, generator=g)
+        return sig.reshape(B, nsym, cfg.ofdm_len)[..., cfg.cp_size:]
+
+    keys = ("kernel", "radix_ref", "plain", "library", "matmul")
+    out = {cond: dict.fromkeys(keys, 0.0) for cond in ("warm", "cold")}
+    out["bound"] = out["dense"] = 0.0
     limits = {"bytes": 0.0, "operations": 0.0}
-    for label, x, sign in shapes:
-        n = x.shape[-1]
-        m = x.numel() // n
+    for label, sign in (("TX", +1), ("RX", -1)):
+        xs = [make(label) for _ in range(COLD_SETS)]
+        n = xs[0].shape[-1]
+        m = xs[0].numel() // n
         w = dft.dft_planes(n, sign, 1.0, dev)
         wc = torch.complex(w[0], w[1])
-        x2 = x.reshape(m, n)
-        lib = ((lambda i: torch.fft.fft(x)) if sign < 0
-               else (lambda i: torch.fft.ifft(x, norm="forward")))
-        fns = {"kernel": lambda i: dft.dft(x, sign),
-               "plain": lambda i: dft.dft_ref(x, sign),
-               "library": lib,
-               "matmul": lambda i: x2 @ wc}
-        for fn in fns.values():
-            cuda_ms(fn, 8)
-        devt = {k: [] for k in fns}
-        for order in (tuple(fns), tuple(reversed(fns))):
-            for k in order:
-                devt[k].append(device_ms(fns[k], 20)[0])
-        med = {k: statistics.median(v) for k, v in devt.items()}
+        x2s = [x.reshape(m, n) for x in xs]
         nbytes = 2 * m * n * 8
+        check(COLD_SETS * nbytes / 2 > 2 * L2_BYTES,
+              f"{label}: {COLD_SETS} input sets do not exceed the L2 twice")
         fft_flops = 5 * m * n * math.log2(n)
         dense_flops = 8 * m * n * n
         by = {"bytes": bytes_ms(nbytes),
               "operations": fft_flops / FP32_FLOP_S * 1e3}
         bound = max(by.values())
         dense = dense_flops / FP32_FLOP_S * 1e3
-        for k in ("kernel", "plain", "library"):
-            totals[k] += med[k]
-        totals["bound"] += bound
-        totals["dense"] += dense
+        out["bound"] += bound
+        out["dense"] += dense
         for k in by:
             limits[k] += by[k]
-        say("dft-timing", f"K4 {label} [{m},{n}] sign {sign:+d}: kernel "
-            f"{med['kernel'] * 1e3:.3f} us, {bound / med['kernel']:.1%} of the "
-            f"bound {bound * 1e3:.3f} us ({nbytes / 1e6:.1f} MB of x and y at "
-            f"3.35 TB/s; {fft_flops / 1e6:.1f} MFLOP of an FFT at 67 TFLOP/s "
-            f"fp32), {dense / med['kernel']:.1%} of the dense product's floor "
-            f"{dense * 1e3:.3f} us ({dense_flops / 1e9:.2f} GFLOP, "
-            f"{dense_flops / (med['kernel'] * 1e-3) / 1e12:.2f} TFLOP/s); "
-            f"plain {med['plain'] * 1e3:.3f} us; library (torch.fft) "
-            f"{med['library'] * 1e3:.3f} us; complex torch.matmul with W "
-            f"{med['matmul'] * 1e3:.3f} us (device, median of 2 profiled runs "
-            f"of 20)")
-    totals["bound_by"] = max(limits, key=limits.get)
-    say("dft-timing", f"K4 per pallas step (TX + RX): kernel "
-        f"{totals['kernel']:.5f} ms, plain {totals['plain']:.5f} ms, library "
-        f"{totals['library']:.5f} ms, bound {totals['bound']:.5f} ms "
-        f"({totals['bound_by']}), dense product's floor "
-        f"{totals['dense']:.5f} ms")
-    return totals
+        for cond, sets in (("warm", 1), ("cold", COLD_SETS)):
+            lib = ((lambda i: torch.fft.fft(xs[i % sets])) if sign < 0
+                   else (lambda i: torch.fft.ifft(xs[i % sets],
+                                                  norm="forward")))
+            fns = {"kernel": lambda i: dft.dft(xs[i % sets], sign),
+                   "radix_ref": lambda i: dft.dft_radix_ref(xs[i % sets],
+                                                            sign),
+                   "plain": lambda i: dft.dft_ref(xs[i % sets], sign),
+                   "library": lib,
+                   "matmul": lambda i: x2s[i % sets] @ wc}
+            for fn in fns.values():
+                cuda_ms(fn, 2 * sets)
+            devt = {k: [] for k in fns}
+            for order in (tuple(fns), tuple(reversed(fns))):
+                for k in order:
+                    devt[k].append(device_ms(fns[k], 24)[0])
+            med = {k: statistics.median(v) for k, v in devt.items()}
+            for k in keys:
+                out[cond][k] += med[k]
+            say("dft-timing", f"K4 {label} [{m},{n}] sign {sign:+d}, {cond} "
+                f"L2: kernel {med['kernel'] * 1e3:.3f} us, "
+                f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
+                f"us ({nbytes / 1e6:.1f} MB of x and y at 3.35 TB/s; "
+                f"{fft_flops / 1e6:.1f} MFLOP of an FFT at 67 TFLOP/s fp32), "
+                f"{nbytes / (med['kernel'] * 1e-3) / 1e9:.0f} GB/s; "
+                f"dft_radix_ref {med['radix_ref'] * 1e3:.3f} us; plain "
+                f"(dft_ref) {med['plain'] * 1e3:.3f} us; library (torch.fft) "
+                f"{med['library'] * 1e3:.3f} us (K4 / library "
+                f"{med['kernel'] / med['library']:.2f}); complex torch.matmul "
+                f"with W {med['matmul'] * 1e3:.3f} us (device, median of 2 "
+                f"profiled runs of 24; dense product's floor "
+                f"{dense * 1e3:.3f} us)")
+    out["bound_by"] = max(limits, key=limits.get)
+    for cond in ("warm", "cold"):
+        t = out[cond]
+        say("dft-timing", f"K4 per pallas step (TX + RX), {cond} L2: kernel "
+            f"{t['kernel']:.5f} ms ({out['bound'] / t['kernel']:.1%} of the "
+            f"bound {out['bound']:.5f} ms, {out['bound_by']}), library "
+            f"{t['library']:.5f} ms (K4 / library "
+            f"{t['kernel'] / t['library']:.3f}), dft_radix_ref "
+            f"{t['radix_ref']:.5f} ms, plain {t['plain']:.5f} ms, complex "
+            f"matmul {t['matmul']:.5f} ms")
+
+    # the dense route once, at the RX row count and n = 500
+    x = torch.randn(B * nsym, 500, dtype=torch.complex64, device=dev,
+                    generator=g)
+    check(dft._route(500) == "dense", "n = 500 not on the dense route")
+    fns = {"kernel": lambda i: dft.dft(x, -1),
+           "library": lambda i: torch.fft.fft(x)}
+    for fn in fns.values():
+        cuda_ms(fn, 4)
+    med = {k: device_ms(fn, 24)[0] for k, fn in fns.items()}
+    nb = 2 * x.numel() * 8
+    say("dft-timing", f"K4 dense route [{x.shape[0]},500] sign -1, warm L2: "
+        f"kernel {med['kernel'] * 1e3:.3f} us against the bound "
+        f"{bytes_ms(nb) * 1e3:.3f} us (bytes) and the dense product's floor "
+        f"{8 * x.shape[0] * 500 ** 2 / FP32_FLOP_S * 1e6:.3f} us; library "
+        f"(torch.fft) {med['library'] * 1e3:.3f} us")
+    return out
 
 
 def main():
@@ -1047,11 +1124,11 @@ def main():
         "replaces": "c_ofdm_tpu/ops/pallas_fft.py:41",
         "launches": k4_launches,
         "max_abs_err": dft_err,
-        "ms": k4["kernel"],
-        "plain_ms": k4["plain"],
+        "ms": k4["cold"]["kernel"],
+        "plain_ms": k4["cold"]["plain"],
         "bound_ms": k4["bound"],
         "bound_by": k4["bound_by"],
-        "library_ms": k4["library"],
+        "library_ms": k4["cold"]["library"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

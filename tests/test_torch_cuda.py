@@ -188,8 +188,9 @@ def _dft64(x, sign, scale):
 def test_dft_kernel_matches_plain_version(dev, case):
     """K4 at the flagship step's shapes (the RX input is the strided
     CP-stripped view, row stride 640), a ragged row count and a size that is
-    no multiple of the tile, against dft_ref and the float64 DFT: within
-    1e-5·max|Y| and within 4x the plain version's own error."""
+    no power of two (the dense route; the others take the radix route),
+    against dft_ref and the float64 DFT: within 1e-5·max|Y| and within 4x
+    the plain version's own error."""
     g = torch.Generator(device=dev).manual_seed(4)
 
     def randc(*shape):
@@ -205,17 +206,60 @@ def test_dft_kernel_matches_plain_version(dev, case):
         x = randc(1000, 512)
     else:
         x, scale = randc(3, 77, 500), 1.0 / np.sqrt(500)
-    before = dft.dft.launches
+    before = (dft.dft.launches, dft.dft.radix_launches,
+              dft.dft.dense_launches)
     got = dft.dft(x, sign, scale)
     plain = dft.dft_ref(x, sign, scale)
     torch.cuda.synchronize()
-    assert dft.dft.launches == before + 1
+    radix = case != "n500_scaled"
+    assert (dft.dft.launches, dft.dft.radix_launches,
+            dft.dft.dense_launches) == (before[0] + 1, before[1] + radix,
+                                        before[2] + (not radix))
     assert got.shape == x.shape and got.dtype == torch.complex64
     want = _dft64(x, sign, scale)
     err = float((got.to(torch.complex128) - want).abs().max())
     err_plain = float((plain.to(torch.complex128) - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
     assert err <= 4 * err_plain
+
+
+@pytest.mark.parametrize("case", [64, 256, 512, 8192, "rx_view"])
+def test_dft_radix_kernel_matches_plain_versions(dev, case):
+    """The radix route against dft_ref, dft_radix_ref (the same passes in
+    plain PyTorch: within 1e-6·max|Y|, each butterfly rounded in its own
+    order) and the float64 DFT (within 1e-5·max|Y| and 4x dft_ref's error),
+    ragged row counts, both signs; one radix launch, and no n x n planes
+    built for it."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    if case == "rx_view":
+        x = torch.randn(256, 9 * 640, dtype=torch.complex64, device=dev,
+                        generator=g).reshape(256, 9, 640)[..., 128:]
+        sign, scale = -1, 1.0
+    else:
+        rows = {64: 4099, 256: 1001, 512: 2049, 8192: 37}[case]
+        x = torch.randn(rows, case, dtype=torch.complex64, device=dev,
+                        generator=g)
+        sign, scale = ((+1, 1.0 / np.sqrt(case)) if case in (256, 8192)
+                       else (-1, 1.0))
+    dft.dft_planes.cache_clear()
+    before = (dft.dft.launches, dft.dft.radix_launches,
+              dft.dft.dense_launches)
+    got = dft.dft(x, sign, scale)
+    torch.cuda.synchronize()
+    assert (dft.dft.launches, dft.dft.radix_launches,
+            dft.dft.dense_launches) == (before[0] + 1, before[1] + 1,
+                                        before[2])
+    assert dft.dft_planes.cache_info().currsize == 0
+    assert got.shape == x.shape and got.dtype == torch.complex64
+    want = _dft64(x, sign, scale)
+    ymax = float(want.abs().max())
+    err = float((got.to(torch.complex128) - want).abs().max())
+    err_plain = float((dft.dft_ref(x, sign, scale).to(torch.complex128)
+                       - want).abs().max())
+    radix = dft.dft_radix_ref(x, sign, scale)
+    assert err <= 1e-5 * ymax
+    assert err <= 4 * err_plain
+    assert float((got - radix).abs().max()) <= 1e-6 * ymax
 
 
 def test_dft_kernel_rejects_what_it_does_not_take(dev):
@@ -226,17 +270,21 @@ def test_dft_kernel_rejects_what_it_does_not_take(dev):
 
 
 def test_pallas_flagship_step_on_card(dev):
-    """B = 8 under fft_backend="pallas": K4 launched twice (TX and RX), K1
-    once, payloads exact and equal to the CPU run."""
+    """B = 8 under fft_backend="pallas": K4 launched twice (TX and RX, both
+    on the radix route), K1 once, payloads exact and equal to the CPU
+    run."""
     payload = np.random.default_rng(5).integers(
         0, 256, (8, CFG.frame_bytes), dtype=np.uint8)
     spec = make_frame_spec(CFG, torch.complex64, device=dev,
                            fft_backend="pallas")
-    before = (dft.dft.launches, extract.extract_windows.launches)
+    before = (dft.dft.launches, extract.extract_windows.launches,
+              dft.dft.radix_launches, dft.dft.dense_launches)
     res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
     torch.cuda.synchronize()
     assert (dft.dft.launches, extract.extract_windows.launches) == (
         before[0] + 2, before[1] + 1)
+    assert (dft.dft.radix_launches, dft.dft.dense_launches) == (
+        before[2] + 2, before[3])
     assert bool(s.found.all()) and not bool(s.frame_start.any())
     np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
     cpu = FlagshipStep(make_frame_spec(CFG, torch.complex64, device="cpu",

@@ -9,6 +9,10 @@ Tolerances, each with its reason:
 * K4's plain version against ``dft_pallas`` (interpret mode, as
   tests/test_pallas_fft.py runs it) within 1e-5·max|Y|: both are float32
   dots of the same float32 twiddle planes, summed in another order;
+* the radix kernel's plain version ``dft_radix_ref`` against
+  ``dft_pallas`` and the float64 DFT within 1e-5·max|Y| too: float32
+  radix-8 passes with float32 twiddles, a few ulps per pass;
+* the twiddle table exactly: both sides round the same float64 values;
 * the bf16 backends in complex128 within 1e-10·n too: both packages round
   the same operands to the same bfloat16 values and sum in float64;
 * slices, reshapes and gathers of bins exactly.
@@ -109,6 +113,7 @@ def test_dft_leading_dims_and_wrapper_on_cpu():
     assert torch.equal(tdft.dft(view.conj()),
                        tdft.dft_ref(view.conj().resolve_conj()))
     assert tdft.dft.launches == before
+    assert tdft.dft.radix_launches == tdft.dft.dense_launches == 0
     w = tdft.dft_planes(256, -1, 1.0, CPU)
     assert w is tdft.dft_planes(256, -1, 1.0, CPU)        # built once
     for sign, scale in ((-1, 1.0), (1, 1 / 16)):
@@ -117,6 +122,97 @@ def test_dft_leading_dims_and_wrapper_on_cpu():
             np.stack(_dft_planes(256, sign, scale)))
     with pytest.raises(ValueError, match="no kernel"):
         tdft.dft(torch.zeros((2, 8), dtype=torch.complex64, device="meta"))
+
+
+@pytest.mark.parametrize("n,route", [(8, "dense"), (16, "radix"),
+                                     (500, "dense"), (512, "radix"),
+                                     (8192, "radix"), (16384, "dense")])
+def test_dft_route_by_size(n, route):
+    """The kernel is chosen by n alone: the radix FFT for every power of two
+    from 16 to 8192, the dense product for anything else."""
+    assert tdft._route(n) == route
+    if route == "dense":
+        with pytest.raises(ValueError, match="power of two"):
+            tdft.dft_radix_ref(torch.zeros((1, n), dtype=torch.complex64))
+
+
+def test_fft_twiddles_rounded_once():
+    """exp(sign·2πi·k/n) in float64, rounded once to complex64; cached."""
+    for n in (16, 512, 8192):
+        for sign in (-1, 1):
+            tw = tdft.fft_twiddles(n, sign, CPU)
+            want = np.exp(sign * 2j * np.pi * np.arange(n) / n)
+            assert tw.dtype == torch.complex64 and tw.shape == (n,)
+            np.testing.assert_array_equal(tw.numpy(), want.astype(np.complex64))
+            assert tw is tdft.fft_twiddles(n, sign, CPU)
+    # every entry is the float64 value's nearest float32, component-wise
+    tw = tdft.fft_twiddles(8192, 1, CPU).numpy()
+    want = np.exp(2j * np.pi * np.arange(8192) / 8192)
+    for got, ref in ((tw.real, want.real), (tw.imag, want.imag)):
+        assert (np.abs(got - ref)
+                <= np.spacing(np.abs(ref).astype(np.float32)) / 2).all()
+
+
+def _swizzle(i):
+    """csrc/dft.cu's swz: the shared-memory slot of block point i."""
+    return i ^ ((i >> 3) & 15)
+
+
+def test_radix_exchange_swizzle_and_banks():
+    """The radix kernel's shared-memory layout (csrc/dft.cu: blocks of
+    max(256, n/8) threads, n/8 per row, rows packed, swz of the block
+    index): a bijection on every block, and at n = 512 every exchange access
+    of a warp (8-byte words: one half-warp per wavefront, bank pair = slot
+    mod 16) touches 16 distinct bank pairs per half-warp."""
+    for lg in range(4, 14):
+        n = 1 << lg
+        size = max(256, n // 8) // (n // 8) * n
+        assert sorted(_swizzle(i) for i in range(size)) == list(range(size))
+    n, t_n = 512, 64
+    tid = np.arange(256)
+    lr, t = tid // t_n, tid % t_n
+    accesses = []
+    ns = 1
+    for i, radix in enumerate(tdft._radices(n)):
+        nb = 8 // radix
+        if i > 0:                       # reads: point t + k·n/8
+            accesses += [lr * n + t + k * t_n for k in range(8)]
+        if ns * radix < n:              # writes: expand(j, Ns, R) + r·Ns
+            for k in range(8):
+                j = t + (k % nb) * t_n
+                accesses.append(lr * n + (j // ns) * ns * radix + j % ns
+                                + (k // nb) * ns)
+        ns *= radix
+    assert len(accesses) == 4 * 8       # 2 exchanges, 8 reads + 8 writes
+    for acc in accesses:
+        slots = np.array([_swizzle(int(i)) for i in acc])
+        for half in slots.reshape(-1, 16):
+            assert len(set(half % 16)) == 16
+
+
+@pytest.mark.parametrize("n", [16, 64, 256, 512, 1024, 8192])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_dft_radix_ref_matches_dft_pallas_and_float64(n, sign, scaled):
+    """The radix kernel's passes in plain PyTorch, on a strided view (rows
+    of stride n + 64, as the receiver's CP-stripped symbols), against
+    dft_pallas (interpret mode) and the float64 DFT."""
+    scale = 1.0 / np.sqrt(n) if scaled else 1.0
+    rows = 3 if n == 8192 else 6
+    wide = _crandn(np.random.default_rng(n - sign), (rows, n + 64),
+                   np.complex64)
+    x = wide[:, 64:]
+    view = _t(wide)[:, 64:]
+    assert view.stride() == (n + 64, 1)
+    got = tdft.dft_radix_ref(view, sign, scale)
+    assert got.dtype == torch.complex64 and got.shape == x.shape
+    ref = (np.fft.fft(x.astype(np.complex128)) if sign < 0
+           else np.fft.ifft(x.astype(np.complex128)) * n) * scale
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    want = np.asarray(dft_pallas(jnp.asarray(x), sign=sign, scale=scale))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 # -------------------------------------------------------------- backends
