@@ -87,11 +87,11 @@ def synchronize(spec: FrameSpec, captures: torch.Tensor) -> SyncResult:
 
 
 def _sig_starts(spec: FrameSpec, n: int, frame_starts: torch.Tensor):
-    """(int32 starts of the post-burst span clamped to [0, n - sig], sig)."""
+    """(starts of the post-burst span clamped to [0, n - sig], in the index
+    type of ``frame_starts``; sig)."""
     cfg = spec.cfg
     ln = cfg.preamble_len + cfg.message_len
-    starts = torch.clamp(frame_starts + cfg.t2sin_size, 0, n - ln)
-    return starts.to(torch.int32), ln
+    return torch.clamp(frame_starts + cfg.t2sin_size, 0, n - ln), ln
 
 
 def extract_sigs_rows(spec: FrameSpec, captures: torch.Tensor,

@@ -176,11 +176,9 @@ def gated_hits(spec: FrameSpec, ring: torch.Tensor, min_pos: torch.Tensor,
     start = torch.clamp(cand_w * hop - hop, 0, n - win)    # [..., K]
 
     if lead:
-        regions = extract.extract_windows_multi(
-            ring, start.to(torch.int32), win)
+        regions = extract.extract_windows_multi(ring, start, win)
     else:
-        regions = extract.extract_windows_single(
-            ring, start.to(torch.int32), win)
+        regions = extract.extract_windows_single(ring, start, win)
     scores = sync.matched_filter_scores(spec, regions)[..., :G]
 
     lags = start[..., None] + torch.arange(G, device=dev)

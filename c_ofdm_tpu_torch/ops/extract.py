@@ -11,23 +11,104 @@ multi-ring caller ``_extract_multi_call``):
 K1 gathers the batch receiver's frame windows; K2 and K3 gather the
 streaming receiver's candidate search regions and frame windows out of one
 ring or out of C channel rings.  On a CUDA tensor each wrapper launches the
-hand-written Hopper kernel ``csrc/extract_windows.cu`` (one template for all
-three) and adds one to its own ``launches`` count; on a CPU tensor it runs
-its plain PyTorch version (``*_ref``).  Starts follow ``lax.dynamic_slice``
-in both: a negative start counts from the end once (s + n), then the start
-is clamped to [0, n - win].
+hand-written Hopper kernel ``csrc/extract_windows.cu`` (one source for all
+three) and adds one to its own ``launches`` count and to
+``class_launches[name]``; on a CPU tensor it runs its plain PyTorch version
+(``*_ref``).  Starts are int32 or int64 and follow ``lax.dynamic_slice`` in
+both: a negative start counts from the end once (s + n), then the start is
+clamped to [0, n - win].
+
+The kernel has two bodies.  The wide body copies each window as 16-byte
+pairs of 8-byte halves, cut per window by ``plan_window`` (mirrored line for
+line in the ``.cu``), 4 pairs per thread; the scalar body copies one
+element per thread.  ``launch_plan`` picks the class (``scalar`` or
+``wide``) and its grid from the shape and the element width alone: small
+launches, whose time is the launch and two memory latencies, keep the scalar
+body, which measured a few percent faster there; all others take the wide
+body.  ``body=`` on a wrapper forces a class, for timing one body against
+another and for tests; nothing gives way to another class after a failure.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _kernels
 
 _ELEM_BYTES = {torch.complex64: 8, torch.complex128: 16}
+_START_BYTES = {torch.int32: 4, torch.int64: 8}
+
+# The wide body copies WIDE_UNITS 16-byte pairs per thread: 64 bytes in
+# flight.  The threshold comes from timing both bodies at the receiver's
+# shapes on an H100 (chip_smoke.py, gather-timing): up to 1 MiB each way (the
+# candidate regions of one ring) the scalar body is faster, above it (frame
+# windows of one ring and everything larger) the wide body is.
+CLASSES = ("scalar", "wide")
+WIDE_UNITS = 4
+MAX_THREADS = 256
+MIN_WIDE_HALVES = 8         # a shorter window (< 64 bytes) is not paired
+SCALAR_MAX_PAIRS = 1 << 16  # launches of up to 1 MiB each way stay scalar
+
+
+class WindowPlan(NamedTuple):
+    """How the wide body copies one window of 8-byte halves."""
+    head: int      # 0 or 1 half copied alone in front
+    pairs: int     # 16-byte units, each stored with one aligned store
+    tail: int      # 0 or 1 half copied alone behind
+    aligned: bool  # the pairs' source is 16-byte aligned: one load per pair
+
+
+def plan_window(src_addr: int, dst_addr: int, halves: int) -> WindowPlan:
+    """The wide body's cut of one window of ``halves`` 8-byte halves (one per
+    complex64 element, two per complex128), from the byte addresses of its
+    first source and destination halves (both 8-byte aligned).  The kernel's
+    ``plan_window`` repeats this line for line."""
+    head = 1 if (dst_addr & 15) != 0 and halves > 0 else 0
+    pairs = (halves - head) // 2
+    tail = halves - head - 2 * pairs
+    aligned = ((src_addr + 8 * head) & 15) == 0
+    return WindowPlan(head, pairs, tail, aligned)
+
+
+class LaunchPlan(NamedTuple):
+    """One launch: its class, 16-byte pairs per thread (0: scalar body),
+    block size, and tiles (blocks) per window."""
+    name: str
+    units: int
+    threads: int
+    tiles: int
+
+
+def launch_class(windows: int, win: int, elem_bytes: int) -> str:
+    """The class a shape runs, from the shape and the element width alone."""
+    halves = win * elem_bytes // 8
+    pairs = windows * (halves // 2)
+    if halves < MIN_WIDE_HALVES or pairs <= SCALAR_MAX_PAIRS:
+        return "scalar"
+    return "wide"
+
+
+def launch_plan(windows: int, win: int, elem_bytes: int,
+                body: str | None = None) -> LaunchPlan:
+    """Class and grid of one launch of ``windows`` windows of ``win``
+    elements.  ``body`` names a class to force; by default ``launch_class``
+    chooses.  A window gets the fewest tiles a block of ``MAX_THREADS``
+    allows and then the smallest block of whole warps that covers it, so no
+    tile is more than one warp short."""
+    name = body or launch_class(windows, win, elem_bytes)
+    if name not in CLASSES:
+        raise ValueError(f"body must be one of {CLASSES}, got {body!r}")
+    units = WIDE_UNITS if name == "wide" else 0
+    # work items of a window: elements (scalar) or 16-byte pairs (wide)
+    items = win if units == 0 else max(1, win * elem_bytes // 16)
+    per_thread = max(1, units)
+    tiles = -(-items // (MAX_THREADS * per_thread))
+    threads = 32 * -(-items // (tiles * per_thread * 32))
+    return LaunchPlan(name, units, threads, tiles)
 
 
 def _slice_starts(starts: torch.Tensor, n: int, win: int) -> torch.Tensor:
@@ -74,8 +155,13 @@ def _lib() -> ctypes.CDLL:
     fn = lib.c_ofdm_extract_windows
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.c_ofdm_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+    lib.c_ofdm_empty_launch.restype = ctypes.c_int
     lib.c_ofdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.c_ofdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,8 +172,9 @@ def _check_common(name: str, x: torch.Tensor, starts: torch.Tensor,
     if x.dtype not in _ELEM_BYTES:
         raise TypeError(f"{name}: input must be complex64 or complex128, "
                         f"got {x.dtype}")
-    if starts.dtype != torch.int32:
-        raise TypeError(f"{name}: starts must be int32, got {starts.dtype}")
+    if starts.dtype not in _START_BYTES:
+        raise TypeError(f"{name}: starts must be int32 or int64, got "
+                        f"{starts.dtype}")
     if starts.device != x.device:
         raise ValueError(f"{name}: starts on {starts.device}, input on "
                          f"{x.device}")
@@ -137,30 +224,37 @@ def _device_of(name: str, x: torch.Tensor) -> str:
     return x.device.type
 
 
-def _launch(name: str, x: torch.Tensor, starts: torch.Tensor,
-            out: torch.Tensor, rows: int, per_row: int, win: int) -> None:
+def _launch(fn, x: torch.Tensor, starts: torch.Tensor, out: torch.Tensor,
+            rows: int, per_row: int, win: int, body: str | None) -> None:
     """One launch of the shared kernel on the current stream (no
-    synchronise); raises if the launch was refused."""
+    synchronise) in the class ``launch_plan`` gives, counted on the wrapper
+    ``fn``; raises if the launch was refused."""
     n = x.shape[-1]
+    plan = launch_plan(rows * per_row, win, _ELEM_BYTES[x.dtype], body)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.c_ofdm_extract_windows(
             x.data_ptr(), starts.data_ptr(), out.data_ptr(), rows, per_row,
-            n, win, _ELEM_BYTES[x.dtype], stream)
+            n, win, _ELEM_BYTES[x.dtype], _START_BYTES[starts.dtype],
+            plan.units, plan.threads, plan.tiles, stream)
     if rc != 0:
         msg = lib.c_ofdm_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} "
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: {msg} "
                            f"(rows={rows}, windows per row={per_row}, "
-                           f"n={n}, win={win})")
+                           f"n={n}, win={win}, {plan})")
+    fn.launches += 1
+    fn.class_launches[plan.name] += 1
 
 
 def extract_windows(captures: torch.Tensor, starts: torch.Tensor,
-                    win: int) -> torch.Tensor:
-    """K1: captures [B, n] complex, starts [B] int32 -> windows [B, win].
+                    win: int, *, body: str | None = None) -> torch.Tensor:
+    """K1: captures [B, n] complex, starts [B] int32 or int64 -> windows
+    [B, win].
 
     CUDA tensors: launches the kernel on the current stream (no synchronise)
-    and adds one to ``extract_windows.launches``.  CPU tensors:
+    and adds one to ``extract_windows.launches`` and to its class's entry of
+    ``extract_windows.class_launches``.  CPU tensors:
     ``extract_windows_ref``.
     """
     if _device_of("extract_windows", captures) == "cpu":
@@ -170,18 +264,18 @@ def extract_windows(captures: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((B, win), dtype=captures.dtype, device=captures.device)
     if B == 0:
         return out
-    _launch("extract_windows", captures, starts, out, B, 1, win)
-    extract_windows.launches += 1
+    _launch(extract_windows, captures, starts, out, B, 1, win, body)
     return out
 
 
 def extract_windows_single(ring: torch.Tensor, starts: torch.Tensor,
-                           win: int) -> torch.Tensor:
-    """K2: ring [n] complex, starts [K] int32 -> windows [K, win].
+                           win: int, *,
+                           body: str | None = None) -> torch.Tensor:
+    """K2: ring [n] complex, starts [K] int32 or int64 -> windows [K, win].
 
     CUDA tensors: launches the kernel and adds one to
-    ``extract_windows_single.launches``.  CPU tensors:
-    ``extract_windows_single_ref``.
+    ``extract_windows_single.launches`` and to its class's entry of
+    ``class_launches``.  CPU tensors: ``extract_windows_single_ref``.
     """
     if _device_of("extract_windows_single", ring) == "cpu":
         return extract_windows_single_ref(ring, starts, win)
@@ -190,19 +284,19 @@ def extract_windows_single(ring: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((K, win), dtype=ring.dtype, device=ring.device)
     if K == 0:
         return out
-    _launch("extract_windows_single", ring, starts, out, 1, K, win)
-    extract_windows_single.launches += 1
+    _launch(extract_windows_single, ring, starts, out, 1, K, win, body)
     return out
 
 
 def extract_windows_multi(rings: torch.Tensor, starts: torch.Tensor,
-                          win: int) -> torch.Tensor:
-    """K3: rings [C, n] complex, starts [C, K] int32 -> windows [C, K, win],
-    read from the rings in place (no flat copy, no chunking).
+                          win: int, *,
+                          body: str | None = None) -> torch.Tensor:
+    """K3: rings [C, n] complex, starts [C, K] int32 or int64 -> windows
+    [C, K, win], read from the rings in place (no flat copy, no chunking).
 
     CUDA tensors: launches the kernel and adds one to
-    ``extract_windows_multi.launches``.  CPU tensors:
-    ``extract_windows_multi_ref``.
+    ``extract_windows_multi.launches`` and to its class's entry of
+    ``class_launches``.  CPU tensors: ``extract_windows_multi_ref``.
     """
     if _device_of("extract_windows_multi", rings) == "cpu":
         return extract_windows_multi_ref(rings, starts, win)
@@ -211,11 +305,26 @@ def extract_windows_multi(rings: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((C, K, win), dtype=rings.dtype, device=rings.device)
     if C == 0 or K == 0:
         return out
-    _launch("extract_windows_multi", rings, starts, out, C, K, win)
-    extract_windows_multi.launches += 1
+    _launch(extract_windows_multi, rings, starts, out, C, K, win, body)
     return out
 
 
-extract_windows.launches = 0
-extract_windows_single.launches = 0
-extract_windows_multi.launches = 0
+def empty_launch(grid: tuple[int, int], threads: int,
+                 device: torch.device) -> None:
+    """Start the kernel that does nothing on ``grid`` blocks of ``threads``
+    threads, on ``device``'s current stream: its device time is the card's
+    floor for one launch.  Counted nowhere."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        rc = lib.c_ofdm_empty_launch(
+            grid[0], grid[1], threads,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: "
+                           f"{lib.c_ofdm_cuda_error_string(rc).decode()} "
+                           f"(grid={grid}, threads={threads})")
+
+
+for _fn in (extract_windows, extract_windows_single, extract_windows_multi):
+    _fn.launches = 0
+    _fn.class_launches = dict.fromkeys(CLASSES, 0)

@@ -13,29 +13,32 @@ receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 and C = 8 under pallas).  Phases, each printing its lines:
 
   1 device    the card, its name and power limit (nvidia-smi)
-  2 build     csrc/extract_windows.cu (K1, K2, K3) and csrc/dft.cu (K4's
-              radix and dense routes), one nvcc each for sm_90a, started
-              together; ptxas registers and spills
+  2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
+              bodies, and the empty kernel) and csrc/dft.cu (K4's radix and
+              dense routes), one nvcc each for sm_90a, started together;
+              ptxas registers and spills of every instantiation
   3 kernel    K1 against its plain PyTorch version, bit for bit
   4 clean     B = 256 payloads decode exactly, one K1 launch per step
   5 impaired  B = 256 frames at random offsets with CFO and 30 dB AWGN plus
               4 all-zero rows: exact payloads and positions, and the same
               result as the port's plain CPU run
   6 timing    the step (CUDA events) and its device time and idle share,
-              K1 against the plain gather (device time, torch.profiler)
+              K1 against the plain gather and the library call (an index
+              into the unfolded view; device time, torch.profiler)
   7 ring      K2 and K3 against their plain versions, bit for bit, at the
               streaming shapes, complex128, negative and past-end starts
   8 stream    rings built as bench.py builds them (fill 0.8, random gaps,
               CFO 1e-4, amplitude 60, 26 dB AWGN), C = 1/8/64: every planted
               frame decodes exactly once, in order, at its planted start,
               with exact bytes; K2 (C = 1) or K3 (C > 1) launched twice per
-              buffer, K1 never
+              buffer, each launch in the class its shape names, K1 never
   9 stream-cpu  C = 1 and 8: every output field equal to the port's CPU run
  10 state     save_state/load_state after buffer 2 resumes identically
  11 no-sync   one C = 8 buffer under torch.cuda.set_sync_debug_mode("error")
  12 stream-timing  per-buffer median (CUDA events), samples/s, device time
               and idle share at C = 1/8/64; K2/K3 against their plain
-              versions at the path's shapes (device time, torch.profiler)
+              versions and the library call at the path's shapes (device
+              time, torch.profiler)
  13 pallas-stream  the C = 8 buffers of phase 8 under pallas: every planted
               frame exact, K4 once (radix route) and K3 twice per buffer;
               per-buffer time
@@ -59,8 +62,18 @@ and C = 8 under pallas).  Phases, each printing its lines:
               (a DFT's bytes and FFT operations), dft_radix_ref, the plain
               version, torch.fft (the library call) and complex torch.matmul
               with the cached W (torch.profiler), with the L2 warm (one
-              input) and cold (12 inputs in turn); the dense route once at
-              [2304, 500]
+              input) and cold (12 inputs in turn); the same for the pallas
+              streaming buffer's one launch, [2952, 512]; the dense route
+              once at [2304, 500]
+ 19 gather-timing  the card's floor per launch (an empty kernel on grids
+              (1), (49, 4) and (41, 23) and on the C = 1 path's own two);
+              then, in turns within this one call, the scalar body, the
+              wide body and the library call:
+              K2's two launches each on its own line, with the L2 warm (one
+              ring) and cold (40 rings in turn), K3 at C = 8 and 64, K1 at
+              [256, 6016] and [128, 32000]; each beside its byte bound, the
+              class the path runs and the fastest body; K2's frame windows
+              at all-even and all-odd starts
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -182,13 +195,27 @@ def phase_build():
         log = lib.with_suffix(".log")
         say("build", f"{ids}: {lib.name}")
         for ln in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in ln or "spill" in ln:
+            if ("registers" in ln or "spill" in ln
+                    or "Compiling entry function" in ln):
                 say("build", f"{ids} ptxas: {ln.strip()}")
     say("build", f"both built and loaded in {secs:.2f} s")
 
 
 def bytes_ms(nbytes):
     return nbytes / HBM_BYTES_S * 1e3
+
+
+def library_gather(x, starts, win):
+    """The one PyTorch call that computes what K1 (x [B, n], starts [B]), K2
+    (x [n], starts [K]) or K3 (x [C, n], starts [C, K]) computes, for starts
+    already in [0, n - win]: an index into the unfolded view.  Returns a
+    function of the call number; the index tensors are made here, outside
+    the timed call.  The port never calls it: it is the kernels' yardstick."""
+    idx = starts.long()
+    if x.dim() == 2:
+        rows = torch.arange(x.shape[0], device=x.device)
+        idx = (rows, idx) if idx.dim() == 1 else (rows[:, None], idx)
+    return lambda i: x.unfold(-1, win, 1)[idx]
 
 
 def _kernel_cases(dev):
@@ -385,11 +412,18 @@ def run_streaming(dev, profile=None):
     # ---- 8: the main streaming path, counts from 0
     for fn in (extract.extract_windows, *kernels.values()):
         fn.launches = 0
+        fn.class_launches = dict.fromkeys(extract.CLASSES, 0)
+    K = cfg.rx_buf_size + 1
+    path_shapes = ((K + cfg.t2_gate_slack,
+                    cfg.gated_search_lags + cfg.pr_sin_len),
+                   (K, cfg.preamble_len + cfg.message_len))
     outs = {}
     for C in CHANNELS:
         rxr = streaming.StreamingReceiver(spec, channels=0 if C == 1 else C)
         per_buf = []
         outs[C] = []
+        fn = kernels["single" if C == 1 else "multi"]
+        classes_before = dict(fn.class_launches)
         for blk in data[C][0]:
             before = {k: f.launches for k, f in kernels.items()}
             outs[C].append(rxr.feed(blk))
@@ -400,7 +434,16 @@ def run_streaming(dev, profile=None):
                                                         "multi": 2}
         check(all(p == want for p in per_buf),
               f"C={C}: kernel launches per buffer {per_buf}, want {want}")
+        ran = {k: v - classes_before[k]
+               for k, v in fn.class_launches.items() if v != classes_before[k]}
+        want_classes = {}
+        for k, win in path_shapes:
+            name = extract.launch_class(C * k, win, 8)
+            want_classes[name] = want_classes.get(name, 0) + S
+        check(ran == want_classes, f"C={C}: launches by class {ran}, the "
+              f"shapes name {want_classes}")
         n_frames = check_truth(spec, outs[C], data[C][1], C)
+        say("stream", f"C={C}: launches by class {ran}")
         say("stream", f"C={C}: {S} buffers of {buf} samples, {n_frames} "
             f"planted frames decoded exactly once, in order, at their "
             f"planted starts, bytes exact; "
@@ -455,12 +498,14 @@ def run_streaming(dev, profile=None):
         f"set_sync_debug_mode('error') with no host synchronisation")
 
     # ---- 12: timing
-    kernel_ms, plain_ms, bound = stream_timing(spec, data, profile)
+    kernel_ms, plain_ms, bound, library_ms = stream_timing(spec, data,
+                                                           profile)
 
     # ---- 13: the same C = 8 buffers under pallas (K4 in the demod)
     run_pallas_stream(dev, data[STATE_C])
     return {"launches": launches, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound}
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": library_ms}
 
 
 def run_pallas_stream(dev, data):
@@ -507,9 +552,9 @@ def run_pallas_stream(dev, data):
 
 def stream_timing(spec, data, profile=None):
     """Phase 12: per-buffer time at C = 1/8/64, then K2/K3 against their
-    plain versions.  Returns the device ms per buffer of the two K2
-    launches at C = 1 and of the two K3 launches at C = 8, kernel and
-    plain."""
+    plain versions and the library call.  Returns the device ms per buffer
+    of the two K2 launches at C = 1 and of the two K3 launches at C = 8:
+    kernel, plain, bound, library."""
     from torch.autograd import DeviceType
     from c_ofdm_tpu_torch.models import streaming
     from c_ofdm_tpu_torch.ops import extract
@@ -563,24 +608,26 @@ def stream_timing(spec, data, profile=None):
                 fns = {"kernel": lambda i, x=x, s=s, w=win:
                        extract.extract_windows_single(x, s, w),
                        "plain": lambda i, x=x, s=s, w=win:
-                       extract.extract_windows_single_ref(x, s, w)}
+                       extract.extract_windows_single_ref(x, s, w),
+                       "library": library_gather(x, s, win)}
             else:
                 fns = {"kernel": lambda i, x=rings, s=st, w=win:
                        extract.extract_windows_multi(x, s, w),
                        "plain": lambda i, x=rings, s=st, w=win:
-                       extract.extract_windows_multi_ref(x, s, w)}
+                       extract.extract_windows_multi_ref(x, s, w),
+                       "library": library_gather(rings, st, win)}
             for fn in fns.values():
                 cuda_ms(fn, 16)
             wall = {key: [] for key in fns}
             devt = {key: [] for key in fns}
-            for order in (("plain", "kernel"), ("kernel", "plain")) * 2:
+            for order in (tuple(fns), tuple(reversed(fns))) * 2:
                 for key in order:
                     wall[key].append(cuda_ms(fns[key], 100))
                     devt[key].append(device_ms(fns[key], 32)[0])
             moved = 2 * C * k * win * 8
             totals[(C, "bound")] = totals.get((C, "bound"), 0.0) + bytes_ms(
                 moved + C * k * 4)
-            for key in ("kernel", "plain"):
+            for key in fns:
                 d = statistics.median(devt[key])
                 totals[(C, key)] = totals.get((C, key), 0.0) + d
                 say("stream-timing", f"{'K2' if C == 1 else 'K3'} "
@@ -591,11 +638,11 @@ def stream_timing(spec, data, profile=None):
                     f"us per call with host dispatch")
         say("stream-timing", f"{'K2' if C == 1 else 'K3'} C={C}, both "
             f"launches of one buffer: kernel {totals[(C, 'kernel')]:.5f} ms, "
-            f"plain {totals[(C, 'plain')]:.5f} ms (device), bound "
+            f"plain {totals[(C, 'plain')]:.5f} ms, library (unfold + index) "
+            f"{totals[(C, 'library')]:.5f} ms (device), bound "
             f"{totals[(C, 'bound')]:.5f} ms (bytes)")
-    return ({"single": totals[(1, "kernel")], "multi": totals[(8, "kernel")]},
-            {"single": totals[(1, "plain")], "multi": totals[(8, "plain")]},
-            {"single": totals[(1, "bound")], "multi": totals[(8, "bound")]})
+    return tuple({"single": totals[(1, key)], "multi": totals[(8, key)]}
+                 for key in ("kernel", "plain", "bound", "library"))
 
 
 def impaired_captures(frames, rng, extra=EXTRA, amp=40.0, cfo=1e-4,
@@ -878,7 +925,9 @@ def dft_timing(dev):
     with the cached W, under two L2 conditions: warm (one input, reused by
     every call; 17-19 MB stays in the 50 MB L2) and cold (COLD_SETS inputs
     in turn, over 100 MB per shape, so each call finds its input outside
-    the L2, as after a fresh capture).  The bound is that of the function,
+    the L2, as after a fresh capture); and the same at [2952, 512], the one
+    launch of a C = 8 pallas streaming buffer, outside the per-step sums.
+    The bound is that of the function,
     a DFT: x read and y written once at the HBM rate, against the radix-2
     FFT's 5·M·n·log2(n) operations at the float32 rate; the dense product's
     floor (8·M·n² at the float32 rate) is printed beside it.  Then the
@@ -895,15 +944,19 @@ def dft_timing(dev):
         if label == "TX":
             return torch.randn(B, cfg.num_symb, cfg.fft_size,
                                dtype=torch.complex64, device=dev, generator=g)
-        sig = torch.randn(B, nsym * cfg.ofdm_len, dtype=torch.complex64,
+        rows = B if label == "RX" else STATE_C * (cfg.rx_buf_size + 1)
+        sig = torch.randn(rows, nsym * cfg.ofdm_len, dtype=torch.complex64,
                           device=dev, generator=g)
-        return sig.reshape(B, nsym, cfg.ofdm_len)[..., cfg.cp_size:]
+        return sig.reshape(rows, nsym, cfg.ofdm_len)[..., cfg.cp_size:]
 
     keys = ("kernel", "radix_ref", "plain", "library", "matmul")
     out = {cond: dict.fromkeys(keys, 0.0) for cond in ("warm", "cold")}
     out["bound"] = out["dense"] = 0.0
     limits = {"bytes": 0.0, "operations": 0.0}
-    for label, sign in (("TX", +1), ("RX", -1)):
+    for label, sign in (("TX", +1), ("RX", -1), ("stream", -1)):
+        # "stream": the pallas streaming buffer's one launch at C = 8, the
+        # CP-stripped symbols of 8 x 41 frame windows; not part of a step
+        in_step = label != "stream"
         xs = [make(label) for _ in range(COLD_SETS)]
         n = xs[0].shape[-1]
         m = xs[0].numel() // n
@@ -919,10 +972,11 @@ def dft_timing(dev):
               "operations": fft_flops / FP32_FLOP_S * 1e3}
         bound = max(by.values())
         dense = dense_flops / FP32_FLOP_S * 1e3
-        out["bound"] += bound
-        out["dense"] += dense
-        for k in by:
-            limits[k] += by[k]
+        if in_step:
+            out["bound"] += bound
+            out["dense"] += dense
+            for k in by:
+                limits[k] += by[k]
         for cond, sets in (("warm", 1), ("cold", COLD_SETS)):
             lib = ((lambda i: torch.fft.fft(xs[i % sets])) if sign < 0
                    else (lambda i: torch.fft.ifft(xs[i % sets],
@@ -941,7 +995,7 @@ def dft_timing(dev):
                     devt[k].append(device_ms(fns[k], 24)[0])
             med = {k: statistics.median(v) for k, v in devt.items()}
             for k in keys:
-                out[cond][k] += med[k]
+                out[cond][k] += med[k] if in_step else 0.0
             say("dft-timing", f"K4 {label} [{m},{n}] sign {sign:+d}, {cond} "
                 f"L2: kernel {med['kernel'] * 1e3:.3f} us, "
                 f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
@@ -984,6 +1038,165 @@ def dft_timing(dev):
     return out
 
 
+def gather_timing(dev):
+    """Phase 19: the window gather (K1, K2, K3) body against body, all in
+    this one call on this one card (device time, torch.profiler).
+
+    First the card's floor per launch: a kernel that does nothing, on grids
+    (1), (49, 4) and (41, 23) of 256 threads (one block, and one thread per
+    element of K2's two launches) and on the two grids the C = 1 path
+    really launches (``launch_plan``).  Then each case in turns (scalar,
+    wide, library, and back): the scalar body and the wide body, each forced
+    by ``body=``, and the library call, at the shapes the paths give the
+    kernels, starts drawn as the paths draw them (candidate regions at
+    multiples of the 128-sample hop, frame windows at any parity).  "warm"
+    reuses one input (a streaming ring that torch.cat has just written is
+    in the 50 MB L2), "cold" takes enough inputs in turn to exceed the L2.
+    Each line gives the byte bound (windows read and written once, starts
+    read once, at 3.35 TB/s), the class ``launch_class`` names for the
+    shape, which is what the path runs, and the fastest body of this call.
+    Returns nothing: the kernels line takes its times from phases 6 and
+    12."""
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.ops import extract
+    cfg = ModemConfig()
+    wide = ModemConfig(**WIDEBAND)
+    n = (cfg.rx_buf_size + 1) * cfg.frame_len
+    K = cfg.rx_buf_size + 1
+    hop = cfg.t2sin_size // 2
+    regions = (K + cfg.t2_gate_slack, cfg.gated_search_lags + cfg.pr_sin_len)
+    frames = (K, cfg.preamble_len + cfg.message_len)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    path_grids = []
+    for k, win in (regions, frames):
+        plan = extract.launch_plan(k, win, 8)
+        path_grids.append(((k, plan.tiles), plan.threads))
+    grids = [((1, 1), 256), ((regions[0], -(-regions[1] // 256)), 256),
+             ((frames[0], -(-frames[1] // 256)), 256)]
+    grids += [pg for pg in path_grids if pg not in grids]
+    floor = {}
+    for grid, threads in grids:
+        def fn(i, grid=grid, threads=threads):
+            extract.empty_launch(grid, threads, dev)
+        cuda_ms(fn, 32)
+        floor[(grid, threads)] = statistics.median(
+            device_ms(fn, 64)[0] for _ in range(6))
+        say("gather-timing", f"empty kernel, grid {grid} x {threads} "
+            f"threads: device {floor[(grid, threads)] * 1e3:.3f} us per "
+            f"launch (median of 6 profiled runs of 64)")
+    k2_floor = sum(floor[pg] for pg in path_grids)
+
+    def draw(shape, k, win, n_in, parity=None):
+        """Starts in [0, n_in - win]: at multiples of the hop for the
+        candidate regions, else at any (or one) parity."""
+        if (k, win) == regions:
+            return hop * torch.randint(0, (n_in - win) // hop + 1, shape,
+                                       device=dev, generator=g)
+        if parity is not None:
+            return parity + 2 * torch.randint(0, (n_in - win) // 2, shape,
+                                              device=dev, generator=g)
+        return torch.randint(0, n_in - win + 1, shape, device=dev,
+                             generator=g)
+
+    def run(label, kind, xs, sts, win, cond, rounds, extra=""):
+        """One case: xs/sts input sets taken in turn; returns {body: ms}."""
+        fn = {"K1": extract.extract_windows,
+              "K2": extract.extract_windows_single,
+              "K3": extract.extract_windows_multi}[kind]
+        sets = len(xs)
+        fns = {b: (lambda i, b=b: fn(xs[i % sets], sts[i % sets], win,
+                                     body=b))
+               for b in extract.CLASSES}
+        libs = [library_gather(x, st, win) for x, st in zip(xs, sts)]
+        fns["library"] = lambda i: libs[i % sets](i)
+        reps = max(24, sets)
+        for f in fns.values():
+            cuda_ms(f, sets + 2)
+        devt = {b: [] for b in fns}
+        for order in (tuple(fns), tuple(reversed(fns))) * rounds:
+            for b in order:
+                devt[b].append(device_ms(fns[b], reps)[0])
+        med = {b: statistics.median(v) for b, v in devt.items()}
+        windows = sts[0].numel()
+        moved = 2 * windows * win * 8 + windows * 8
+        bound = bytes_ms(moved)
+        runs = extract.launch_class(windows, win, 8)
+        best = min(extract.CLASSES, key=med.get)
+        say("gather-timing", f"{label} {tuple(xs[0].shape)} K={windows} "
+            f"win={win} c64 int64 starts{extra}, {cond} L2 ({sets} input "
+            f"set{'s' if sets > 1 else ''}): bound {bound * 1e3:.3f} us "
+            f"({moved / 1e6:.2f} MB at 3.35 TB/s); "
+            + "; ".join(f"{b} {med[b] * 1e3:.3f} us" for b in med)
+            + f"; the path runs {runs} ({bound / med[runs]:.1%} of the "
+            f"bound, {med[runs] / med['scalar']:.3f} of scalar, "
+            f"{med[runs] / med['library']:.3f} of library); fastest body "
+            f"{best} (device, median of {2 * rounds} profiled runs of "
+            f"{reps})")
+        return med
+
+    def randc(*shape):
+        return torch.randn(*shape, dtype=torch.complex64, device=dev,
+                           generator=g)
+
+    # K2: one ring of the path's size; cold: 40 rings, 79 MB
+    k2 = {}
+    for cond, sets in (("warm", 1), ("cold", 40)):
+        rings = [randc(n) for _ in range(sets)]
+        for name, (k, win) in (("regions", regions), ("frames", frames)):
+            sts = [draw((k,), k, win, n) for _ in range(sets)]
+            k2[(cond, name)] = run(f"K2 {name}", "K2", rings, sts, win, cond,
+                                   rounds=5)
+        del rings
+    for cond in ("warm", "cold"):
+        path = sum(k2[(cond, name)][extract.launch_class(k, win, 8)]
+                   for name, (k, win) in (("regions", regions),
+                                          ("frames", frames)))
+        scalar = sum(k2[(cond, name)]["scalar"]
+                     for name in ("regions", "frames"))
+        lib = sum(k2[(cond, name)]["library"]
+                  for name in ("regions", "frames"))
+        moved = sum(2 * k * win * 8 + k * 8 for k, win in (regions, frames))
+        say("gather-timing", f"K2 per C = 1 buffer (regions + frames), "
+            f"{cond} L2: path {path * 1e3:.3f} us, scalar "
+            f"{scalar * 1e3:.3f} us, library {lib * 1e3:.3f} us; byte bound "
+            f"{bytes_ms(moved) * 1e3:.3f} us; floor of 2 dependent launches "
+            f"{k2_floor * 1e3:.3f} us (the empty kernel on the path's grids "
+            f"{path_grids}); floor + bytes "
+            f"{(k2_floor + bytes_ms(moved)) * 1e3:.3f} us")
+
+    # K2 frame windows at one parity: aligned 16-byte loads against two
+    # 8-byte loads per pair
+    ring = [randc(n)]
+    for parity in (0, 1):
+        st = [draw((frames[0],), *frames, n, parity=parity)]
+        run("K2 frames", "K2", ring, st, frames[1], "warm", rounds=3,
+            extra=f", all starts {'odd' if parity else 'even'}")
+    del ring
+
+    # K3 at C = 8 (ring set 15.8 MB: warm, and 6 sets cold) and C = 64
+    # (126 MB: one set is already outside the L2)
+    for C, conds in ((8, (("warm", 1), ("cold", 6))), (64, (("cold", 1),))):
+        for cond, sets in conds:
+            rings = [randc(C, n) for _ in range(sets)]
+            for name, (k, win) in (("regions", regions), ("frames", frames)):
+                sts = [draw((C, k), k, win, n) for _ in range(sets)]
+                run(f"K3 {name}", "K3", rings, sts, win, cond, rounds=3)
+            del rings
+
+    # K1 at the flagship shape (8 sets, 98 MB, and one) and at the wideband
+    # captures (4 sets, 131 MB)
+    wwin = wide.preamble_len + wide.message_len
+    for shape, win, conds in (
+            ((B, cfg.frame_len), frames[1], (("cold", 8), ("warm", 1))),
+            ((B_WIDE, wide.frame_len + EXTRA_WIDE), wwin, (("cold", 4),))):
+        for cond, sets in conds:
+            xs = [randc(*shape) for _ in range(sets)]
+            sts = [draw(shape[:1], 0, win, shape[1]) for _ in range(sets)]
+            run("K1", "K1", xs, sts, win, cond, rounds=3)
+            del xs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -993,6 +1206,7 @@ def main():
                          "steps (FILE.pallas, FILE.wideband)")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     dev = phase_device()
 
     from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
@@ -1047,22 +1261,26 @@ def main():
                       generator=g) for _ in range(8)]
     sts = [torch.randint(0, cfg.frame_len - win + 1, (B,), device=dev,
                          dtype=torch.int32, generator=g) for _ in range(8)]
+    libs = [library_gather(x, st, win) for x, st in zip(xs, sts)]
     fns = {"kernel": lambda i: extract.extract_windows(xs[i % 8], sts[i % 8], win),
-           "plain": lambda i: extract.extract_windows_ref(xs[i % 8], sts[i % 8], win)}
+           "plain": lambda i: extract.extract_windows_ref(xs[i % 8], sts[i % 8], win),
+           "library": lambda i: libs[i % 8](i)}
     for fn in fns.values():
         cuda_ms(fn, 16)
     wall = {k: [] for k in fns}
     devt = {k: [] for k in fns}
-    for order in (("plain", "kernel"), ("kernel", "plain")) * 3:
+    for order in (tuple(fns), tuple(reversed(fns))) * 3:
         for k in order:
             wall[k].append(cuda_ms(fns[k], 200))
             devt[k].append(device_ms(fns[k], 64)[0])
-    k_ms, p_ms = (statistics.median(devt[k]) for k in ("kernel", "plain"))
+    k_ms, p_ms, l_ms = (statistics.median(devt[k]) for k in fns)
     moved = 2 * B * win * 8
     k1_bound = bytes_ms(moved + B * 4)
-    for k, ms in (("kernel", k_ms), ("plain gather", p_ms)):
-        w = statistics.median(wall["kernel" if k == "kernel" else "plain"])
-        say("timing", f"K1 [{B},{cfg.frame_len}]->[{B},{win}] c64, {k}: "
+    for k, ms in (("kernel", k_ms), ("plain", p_ms), ("library", l_ms)):
+        w = statistics.median(wall[k])
+        label = {"kernel": "kernel", "plain": "plain gather",
+                 "library": "library (unfold + index)"}[k]
+        say("timing", f"K1 [{B},{cfg.frame_len}]->[{B},{win}] c64, {label}: "
             f"device {ms * 1e3:.3f} us ({moved / (ms * 1e-3) / 1e9:.1f} GB/s "
             f"effective, {moved / (ms * 1e-3) / 3.35e12:.1%} of 3.35 TB/s); "
             f"{w * 1e3:.2f} us per call with host dispatch; bound "
@@ -1079,6 +1297,10 @@ def main():
     run_backends(dev, payload_np)
     run_wideband(dev, args.profile)
     k4 = dft_timing(dev)
+    t19 = time.perf_counter()
+    gather_timing(dev)
+    say("gather-timing", f"phase took {time.perf_counter() - t19:.1f} s; "
+        f"all phases {time.perf_counter() - t_start:.1f} s")
 
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"
     print(json.dumps({"kernels": [{
@@ -1092,7 +1314,7 @@ def main():
         "plain_ms": p_ms,
         "bound_ms": k1_bound,
         "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": l_ms,
     }, {
         "name": "extract_windows_single",
         "route": "cuda",
@@ -1104,7 +1326,7 @@ def main():
         "plain_ms": stream["plain_ms"]["single"],
         "bound_ms": stream["bound_ms"]["single"],
         "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": stream["library_ms"]["single"],
     }, {
         "name": "extract_windows_multi",
         "route": "cuda",
@@ -1116,7 +1338,7 @@ def main():
         "plain_ms": stream["plain_ms"]["multi"],
         "bound_ms": stream["bound_ms"]["multi"],
         "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": stream["library_ms"]["multi"],
     }, {
         "name": "dft",
         "route": "cuda",

@@ -60,7 +60,9 @@ def test_kernel_rejects_what_it_does_not_take(dev):
     caps = torch.zeros((2, 64), dtype=torch.complex64, device=dev)
     st = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
-        extract.extract_windows(caps, st.to(torch.int64), 8)
+        extract.extract_windows(caps, st.to(torch.int16), 8)
+    with pytest.raises(ValueError):
+        extract.extract_windows(caps, st, 8, body="wide2")
     with pytest.raises(TypeError):
         extract.extract_windows(caps.real.contiguous(), st, 8)
     with pytest.raises(ValueError):
@@ -125,7 +127,7 @@ def test_ring_kernels_reject_what_they_do_not_take(dev):
     single, multi = (extract.extract_windows_single,
                      extract.extract_windows_multi)
     with pytest.raises(TypeError):
-        single(ring, st.to(torch.int64), 8)
+        single(ring, st.to(torch.int16), 8)
     with pytest.raises(TypeError):
         single(ring.real.contiguous(), st, 8)
     with pytest.raises(ValueError):
@@ -143,6 +145,105 @@ def test_ring_kernels_reject_what_they_do_not_take(dev):
         multi(rings[:, ::2], st[None].expand(2, 3).contiguous(), 8)
     with pytest.raises(TypeError):
         multi(rings, st[None].expand(2, 3).to(torch.int16), 8)
+
+
+def _counts(fn):
+    return fn.launches, dict(fn.class_launches)
+
+
+@pytest.mark.parametrize("body", [None, *extract.CLASSES])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("win", [896, 897, 300, 5, 1])
+def test_bodies_match_plain_versions_on_offset_views(dev, dtype, win, body):
+    """Every class (and the one the shape picks) bit-exact against the plain
+    versions on inputs whose base is 8 bytes past a 16-byte boundary
+    (``ring[1:]``, ``rings[:, 1:]`` made contiguous at an odd storage
+    offset), odd and even win (an odd win gives odd windows an 8-byte-aligned
+    output), odd, even, negative and past-end starts, int32 and int64, with
+    the launch counted on the class ``launch_plan`` names."""
+    rng = np.random.default_rng(7)
+    C, K, n = 3, 9, 4000
+    store = _captures(rng, 1, 1 + C * n, dtype, dev)[0]
+    rings = store[1:].view(C, n)               # contiguous, odd offset
+    assert rings.is_contiguous() and rings.storage_offset() == 1
+    st = rng.integers(0, n - win + 1, (C, K))
+    st[:, :7] = [-n - 5, -7, -1, 0, n - win, n - win + 1, 10**6]
+    st[:, 7:] = [10, 11]
+    eb = 8 if dtype == torch.complex64 else 16
+    for idt in (torch.int32, torch.int64):
+        s = torch.tensor(st, dtype=idt, device=dev)
+        for fn, ref, x, ss, windows in (
+                (extract.extract_windows_multi,
+                 extract.extract_windows_multi_ref, rings, s, C * K),
+                (extract.extract_windows_single,
+                 extract.extract_windows_single_ref, rings[1], s[1], K),
+                (extract.extract_windows, extract.extract_windows_ref,
+                 rings, s[:, 8].contiguous(), C)):
+            name = extract.launch_plan(windows, win, eb, body).name
+            before = _counts(fn)
+            got = fn(x, ss, win, body=body)
+            torch.cuda.synchronize()
+            after = _counts(fn)
+            assert after[0] == before[0] + 1
+            assert after[1][name] == before[1][name] + 1
+            assert sum(after[1].values()) == sum(before[1].values()) + 1
+            assert torch.equal(got, ref(x, ss, win)), (fn.__name__, idt)
+
+
+def test_bodies_equal_each_other_at_the_path_shapes(dev):
+    """Scalar and wide bodies give the same bits at the streaming path's two
+    (K, win) pairs and at the flagship K1 shape, and the shape alone names
+    the class that runs by default."""
+    rng = np.random.default_rng(8)
+    ring = _captures(rng, 1, RING, torch.complex64, dev)[0]
+    for (K, win), name in (((49, 896), "scalar"), ((41, WIN), "wide")):
+        st = torch.tensor(rng.integers(0, RING - win + 1, K), device=dev)
+        before = dict(extract.extract_windows_single.class_launches)
+        outs = [extract.extract_windows_single(ring, st, win, body=b)
+                for b in (None, *extract.CLASSES)]
+        torch.cuda.synchronize()
+        after = extract.extract_windows_single.class_launches
+        assert after[name] == before[name] + 2       # default + forced
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+        assert torch.equal(outs[0], ring.unfold(-1, win, 1)[st])
+    caps = _captures(rng, 256, CFG.frame_len, torch.complex64, dev)
+    st = torch.tensor(rng.integers(0, CFG.frame_len - WIN + 1, 256),
+                      device=dev)
+    outs = [extract.extract_windows(caps, st, WIN, body=b)
+            for b in (None, *extract.CLASSES)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], caps.unfold(-1, WIN, 1)[
+        torch.arange(256, device=dev), st])
+
+
+def test_empty_shapes_and_far_starts(dev):
+    """K = 0 and B = 0 return empty outputs without a launch; int64 starts
+    beyond int32 clamp as the plain version clamps them."""
+    ring = torch.randn(5000, dtype=torch.complex64, device=dev)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    fns = (extract.extract_windows, extract.extract_windows_single,
+           extract.extract_windows_multi)
+    before = [f.launches for f in fns]
+    assert extract.extract_windows_single(ring, none, 300).shape == (0, 300)
+    assert extract.extract_windows(ring[:0].view(0, 5000), none,
+                                   300).shape == (0, 300)
+    assert extract.extract_windows_multi(
+        ring.view(2, 2500), none.view(2, 0), 300).shape == (2, 0, 300)
+    assert [f.launches for f in fns] == before
+    far = torch.tensor([2**40, -2**40, 2**31, -2**31 - 1], dtype=torch.int64,
+                       device=dev)
+    got = extract.extract_windows_single(ring, far, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(got, extract.extract_windows_single_ref(ring, far, 300))
+    assert torch.equal(got[0], ring[-300:]) and torch.equal(got[1], ring[:300])
+
+
+def test_empty_launch_runs_and_rejects_bad_grids(dev):
+    for grid in ((1, 1), (49, 4), (41, 23)):
+        extract.empty_launch(grid, 256, dev)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        extract.empty_launch((1, 1), 2048, dev)
 
 
 def test_gated_buffer_on_card_equals_cpu(dev):

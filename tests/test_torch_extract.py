@@ -228,3 +228,227 @@ def test_library_path_follows_source_hash(monkeypatch, tmp_path):
     second = _kernels.library_path("extract_windows")
     assert first != second
     assert first.parent == second.parent == _kernels.BUILD
+
+
+# ---- the wide body's planning arithmetic (mirrored in csrc/extract_windows.cu)
+
+@pytest.mark.parametrize("elem_bytes", [8, 16])
+@pytest.mark.parametrize("win", [1, 2, 3, 4, 7, 8, 299, 300, 895, 896, 5760])
+@pytest.mark.parametrize("dst_off", [0, 8])
+@pytest.mark.parametrize("src_off", [0, 8])
+def test_plan_window_covers_the_window_with_aligned_pairs(src_off, dst_off,
+                                                          win, elem_bytes):
+    """Head + 2·pairs + tail is the whole window for every combination of
+    source and destination address parity, odd and even win, 8- and 16-byte
+    elements; every paired store is 16-byte aligned; ``aligned`` says
+    exactly when every paired load is."""
+    halves = win * elem_bytes // 8
+    src, dst = 4096 + src_off, 8192 + dst_off
+    p = extract.plan_window(src, dst, halves)
+    assert p.head in (0, 1) and p.tail in (0, 1) and p.pairs >= 0
+    assert p.head + 2 * p.pairs + p.tail == halves
+    assert p.head == (1 if dst_off else 0)
+    for q in {0, p.pairs // 2, max(p.pairs - 1, 0)}:
+        assert (dst + 8 * p.head + 16 * q) % 16 == 0
+        assert ((src + 8 * p.head + 16 * q) % 16 == 0) == p.aligned
+    assert p.aligned == (src_off == dst_off)
+
+
+PATH_SHAPES = [                      # (windows, win, elem bytes, class)
+    (49, 896, 8, "scalar"),          # K2 candidate regions
+    (41, WIN, 8, "wide"),            # K2 frame windows
+    (8 * 49, 896, 8, "wide"), (8 * 41, WIN, 8, "wide"),        # K3, C = 8
+    (64 * 49, 896, 8, "wide"), (64 * 41, WIN, 8, "wide"),      # K3, C = 64
+    (256, WIN, 8, "wide"),           # K1, flagship
+    (128, 27904 - 256, 8, "wide"),   # K1, wideband 8k
+    (7, 300, 16, "scalar"), (400, 300, 16, "wide"),
+    (10**6, 3, 8, "scalar"), (10**6, 3, 16, "scalar"), (10**6, 4, 16, "wide"),
+]
+
+
+@pytest.mark.parametrize("windows,win,elem_bytes,name", PATH_SHAPES)
+def test_launch_plan_class_and_grid(windows, win, elem_bytes, name):
+    """The class follows from the shape alone; its grid covers every pair
+    (or element) of a window with no tile more than one warp short."""
+    plan = extract.launch_plan(windows, win, elem_bytes)
+    assert plan.name == name == extract.launch_class(windows, win, elem_bytes)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.units == (extract.WIDE_UNITS if name == "wide" else 0)
+    per_thread = max(1, plan.units)
+    items = win if name == "scalar" else win * elem_bytes // 16
+    cover = plan.tiles * plan.threads * per_thread
+    assert cover >= items
+    assert cover - items < plan.tiles * 32 * per_thread
+    assert (plan.tiles - 1) * extract.MAX_THREADS * per_thread < items
+
+
+def test_launch_plan_forced_body_and_bad_name():
+    for name in extract.CLASSES:
+        assert extract.launch_plan(41, WIN, 8, body=name).name == name
+    assert extract.launch_plan(49, 896, 8) == ("scalar", 0, 224, 4)
+    assert extract.launch_plan(49, 896, 8, body="wide") == (
+        "wide", 4, 128, 1)
+    assert extract.launch_plan(41, WIN, 8) == ("wide", 4, 256, 3)
+    assert extract.launch_plan(41, WIN, 8, body="scalar") == (
+        "scalar", 0, 256, 23)
+    with pytest.raises(ValueError, match="body must be one of"):
+        extract.launch_plan(41, WIN, 8, body="wide2")
+
+
+def _wide_body(x, x_off, starts, per_row, win, out_off, body):
+    """The wide kernel's copy, thread for thread, on 8-byte halves in numpy:
+    x [rows, n·hpe] uint64 whose first half lies at byte address ``x_off``,
+    output at ``out_off``; grid and cut from ``launch_plan`` and
+    ``plan_window``.  Asserts that every paired store and every load taken as
+    16 bytes is aligned, and that no half is written twice."""
+    rows, n = x.shape
+    hpe = 1                                    # halves per element: x is c64
+    windows = rows * per_row
+    plan = extract.launch_plan(windows, win, 8 * hpe, body)
+    flat = x.reshape(-1)
+    out = np.zeros(windows * win * hpe, np.uint64)
+    written = np.zeros(out.size, np.int64)
+    for w in range(windows):
+        s = int(starts.reshape(-1)[w])
+        s = s + n if s < 0 else s
+        s = min(max(s, 0), n - win)
+        src = (w // per_row * n + s) * hpe
+        dst = w * win * hpe
+        halves = win * hpe
+        p = extract.plan_window(x_off + 8 * src, out_off + 8 * dst, halves)
+        for tile in range(plan.tiles):
+            t = np.arange(plan.threads)
+            for k in range(plan.units):
+                q = tile * plan.threads * plan.units + t + k * plan.threads
+                q = q[q < p.pairs]
+                assert not ((out_off + 8 * (dst + p.head + 2 * q)) % 16).any()
+                if p.aligned:
+                    assert not ((x_off + 8 * (src + p.head + 2 * q)) % 16).any()
+                for h in (0, 1):
+                    out[dst + p.head + 2 * q + h] = flat[src + p.head + 2 * q + h]
+                    written[dst + p.head + 2 * q + h] += 1
+        if p.head:
+            out[dst] = flat[src]
+            written[dst] += 1
+        if p.tail:
+            out[dst + halves - 1] = flat[src + halves - 1]
+            written[dst + halves - 1] += 1
+    assert (written == 1).all()
+    return out.reshape(rows, per_row, win)
+
+
+@pytest.mark.parametrize("body", ["wide"])
+@pytest.mark.parametrize("win", [300, 299, 1, 7, 1030, 2500])
+@pytest.mark.parametrize("x_off,out_off", [(0, 0), (8, 0), (0, 8), (8, 8)])
+def test_wide_body_arithmetic_copies_every_window(x_off, out_off, win, body):
+    """The kernel's index arithmetic rehearsed on the CPU: for 16- and
+    8-byte-aligned bases, odd and even win (odd win gives odd windows an
+    8-byte-aligned output), odd and even and out-of-range starts, each class
+    writes every half of every window exactly once and equals the plain
+    version."""
+    rng = np.random.default_rng(21)
+    rows, per_row, n = 2, 5, 2600
+    x = rng.integers(0, 2**63, (rows, n), dtype=np.uint64)
+    starts = rng.integers(0, n - win + 1, (rows, per_row))
+    starts[0, :4] = [-n - 5, -1, n - win + 1, 10**6]
+    starts[1, :2] = [0, 1]
+    got = _wide_body(x, x_off, starts, per_row, win, out_off, body)
+    want = extract.extract_windows_multi_ref(
+        torch.from_numpy(x.view(np.complex64)),
+        torch.from_numpy(starts), win).numpy().view(np.uint64)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---- int64 starts, and the library expressions the kernels are timed against
+
+@pytest.mark.parametrize("np_dtype", [np.complex64, np.complex128])
+def test_int64_starts_equal_int32_and_dynamic_slice(np_dtype):
+    """extract_windows* take int32 or int64 starts: the same windows, equal
+    to lax.dynamic_slice_in_dim at starts past both ends and on both edges;
+    an int64 start beyond int32 clamps to the last window."""
+    rng = np.random.default_rng(13)
+    n, win = 700, 300
+    edge = EDGE_STARTS(n, win)
+    rings = _captures(rng, len(edge), n, np_dtype)
+    want = np.asarray(jax.vmap(lambda c, s: jax.lax.dynamic_slice_in_dim(
+        c, s, win))(jnp.asarray(rings), jnp.asarray(edge, dtype=jnp.int32)))
+    x = torch.from_numpy(rings)
+    for dt in (torch.int32, torch.int64):
+        st = torch.tensor(edge, dtype=dt)
+        np.testing.assert_array_equal(
+            want, extract.extract_windows(x, st, win).numpy())
+        got = extract.extract_windows_single(x[0], st, win)
+        got3 = extract.extract_windows_multi(x[:2], torch.stack([st, st]),
+                                             win)
+        for k, s in enumerate(edge):
+            one = np.asarray(jax.lax.dynamic_slice_in_dim(
+                jnp.asarray(rings[0]), s, win))
+            np.testing.assert_array_equal(one, got[k].numpy())
+            np.testing.assert_array_equal(one, got3[0, k].numpy())
+    far = torch.tensor([2**40, -2**40], dtype=torch.int64)
+    got = extract.extract_windows_single(x[0], far, win)
+    np.testing.assert_array_equal(got[0].numpy(), rings[0, n - win:])
+    np.testing.assert_array_equal(got[1].numpy(), rings[0, :win])
+
+
+@pytest.mark.parametrize("K,win", [(49, 896), (41, WIN)])
+def test_unfold_index_library_calls_equal_plain_versions(K, win):
+    """The single PyTorch call each kernel is timed against on the card (an
+    index into the unfolded view) equals the plain version for starts in
+    [0, n - win], which is all the receiver passes."""
+    rng = np.random.default_rng(14)
+    n = 4 * CFG.frame_len
+    rings = torch.from_numpy(_captures(rng, 3, n))
+    st = torch.from_numpy(rng.integers(0, n - win + 1, (3, K)))
+    st[:, :2] = torch.tensor([0, n - win])
+    assert torch.equal(rings[0].unfold(-1, win, 1)[st[0]],
+                       extract.extract_windows_single_ref(rings[0], st[0],
+                                                          win))
+    assert torch.equal(
+        rings.unfold(-1, win, 1)[torch.arange(3)[:, None], st],
+        extract.extract_windows_multi_ref(rings, st, win))
+    assert torch.equal(
+        rings.unfold(-1, win, 1)[torch.arange(3), st[:, 0]],
+        extract.extract_windows_ref(rings, st[:, 0], win))
+
+
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64])
+def test_sig_starts_keep_the_callers_index_type(dt):
+    """rx._sig_starts clamps in the caller's index type (no conversion is
+    launched before the gather) and the gathers take either type."""
+    tspec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    n = 2 * CFG.frame_len
+    fs = torch.tensor([0, 100, CFG.frame_len, 10**6, -300], dtype=dt)
+    starts, ln = trx._sig_starts(tspec, n, fs)
+    assert starts.dtype == dt and ln == WIN
+    assert starts.tolist() == [256, 356, CFG.frame_len + 256, n - WIN, 0]
+    ring = torch.from_numpy(_captures(np.random.default_rng(15), 1, n))[0]
+    got = trx.extract_sigs_single(tspec, ring, fs)
+    assert torch.equal(got, extract.extract_windows_single_ref(
+        ring, starts.to(torch.int64), WIN))
+
+
+@pytest.mark.parametrize("channels", [0, 2])
+def test_streaming_gathers_get_starts_without_conversion(monkeypatch,
+                                                         channels):
+    """process_buffer hands the gathers the index tensors it computed (int64
+    candidate starts from the top-K, int32 frame starts from the positions):
+    no dtype conversion runs before either launch."""
+    from c_ofdm_tpu_torch.models import streaming
+    spec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    name = "extract_windows_multi" if channels else "extract_windows_single"
+    real = getattr(extract, name)
+    seen = []
+
+    def spy(x, starts, win, **kw):
+        seen.append((starts.dtype, win))
+        return real(x, starts, win, **kw)
+
+    monkeypatch.setattr(extract, name, spy)
+    lead = (channels,) if channels else ()
+    block = torch.zeros((*lead, CFG.rx_buf_size * CFG.frame_len),
+                        dtype=torch.complex64)
+    streaming.process_buffer(spec, streaming.init_state(spec, channels),
+                             block)
+    assert seen == [(torch.int64, CFG.gated_search_lags + CFG.pr_sin_len),
+                    (torch.int32, WIN)]
