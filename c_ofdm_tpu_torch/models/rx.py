@@ -66,24 +66,72 @@ def demod_frame(spec: FrameSpec, frame_sig: torch.Tensor,
     return demod_sig(spec, frame_sig[..., spec.cfg.t2sin_size:], estimator)
 
 
-def synchronize(spec: FrameSpec, captures: torch.Tensor) -> SyncResult:
+def demod_frames(spec: FrameSpec, frames: torch.Tensor,
+                 estimator: str = "lq") -> RxResult:
+    """``demod_frame`` under the name of the JAX package's
+    ``demod_frames_jit`` (the entry ``apps/ber_sweep.py`` calls)."""
+    return demod_frame(spec, frames, estimator)
+
+
+def synchronize(spec: FrameSpec, captures: torch.Tensor,
+                start=0) -> SyncResult:
     """Single-frame sync of every row of captures [B, n], per `main.cpp:50-58`:
-    coarse detect from the capture start, preamble search in the following
-    sync window, +1 empirical offset — replaced by the local correlation peak
-    when the config's ``peak_refine`` is in effect."""
+    coarse detect from ``start`` (an int, or a [B] tensor of per-row starts),
+    preamble search in the following sync window, +1 empirical offset —
+    replaced by the local correlation peak when the config's ``peak_refine``
+    is in effect."""
     cfg = spec.cfg
-    t2_begin, t2_found = sync.find_t2sin(spec, captures)
-    start = torch.clamp(t2_begin, min=0)
+    t2_begin, t2_found = sync.find_t2sin(spec, captures, start)
+    pr_start = torch.clamp(t2_begin, min=0)
+    find = sync.find_preamble_peak if cfg.peak_refine else sync.find_preamble
+    if isinstance(start, int) and start % cfg.t2sin_size == 0:
+        pr, pr_found = find(spec, captures, pr_start)
+    else:
+        # from a start off the block grid, the JAX package reads the
+        # preamble window from the t2 block that holds the detection but
+        # counts lags from the detection itself (sync.aligned_window): the
+        # positions come out late by the detection's offset into its block
+        late = pr_start % cfg.t2sin_size
+        pr, pr_found = find(spec, captures, pr_start - late)
+        pr = torch.where(pr_found, pr + late, pr)
     if cfg.peak_refine:
-        pr, pr_found = sync.find_preamble_peak(spec, captures, start)
         pr_begin = torch.where(pr_found, pr, pr + 1)  # not-found: -9 contract
     else:
-        pr, pr_found = sync.find_preamble(spec, captures, start)
         pr_begin = pr + 1
     found = t2_found & pr_found
     frame_start = torch.where(found, pr_begin - cfg.t2sin_size, 0)
     frame_start = torch.clamp(frame_start, min=0)
     return SyncResult(frame_start, t2_begin, pr_begin, found)
+
+
+def _dynamic_slice(capture: torch.Tensor, start, length: int) -> torch.Tensor:
+    """``lax.dynamic_slice_in_dim`` along the last axis: ``length`` samples
+    from ``start`` (an int or a 0-d integer tensor); a negative start counts
+    from the end once, then the start is clamped to [0, n - length], so the
+    window always lies inside the capture."""
+    n = capture.shape[-1]
+    if isinstance(start, int):
+        s = min(max(start + n if start < 0 else start, 0), n - length)
+        return capture[..., s:s + length]
+    s = extract._slice_starts(start.to(capture.device), n, length)
+    return capture[..., s + torch.arange(length, device=capture.device)]
+
+
+def extract_frame(spec: FrameSpec, capture: torch.Tensor,
+                  frame_start) -> torch.Tensor:
+    """One frame window [frame_len] of one capture [n] at ``frame_start``,
+    clamped as ``lax.dynamic_slice`` clamps."""
+    return _dynamic_slice(capture, frame_start, spec.cfg.frame_len)
+
+
+def extract_sig(spec: FrameSpec, capture: torch.Tensor,
+                frame_start) -> torch.Tensor:
+    """The post-burst span [preamble_len + message_len] of the frame at
+    ``frame_start`` in one capture [n] (demod never reads the t2sin burst),
+    clamped as ``lax.dynamic_slice`` clamps."""
+    cfg = spec.cfg
+    return _dynamic_slice(capture, frame_start + cfg.t2sin_size,
+                          cfg.preamble_len + cfg.message_len)
 
 
 def _sig_starts(spec: FrameSpec, n: int, frame_starts: torch.Tensor):

@@ -50,6 +50,9 @@ from . import rx as rxm
 from . import tx as txm
 
 
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
 class StreamState(NamedTuple):
     carry: torch.Tensor         # [..., frame_len] complex tail of the last ring
     carry_valid: torch.Tensor   # [...] bool, False before the first buffer
@@ -68,19 +71,28 @@ class StreamOut(NamedTuple):
     cfo: torch.Tensor           # [max_frames]
 
 
-def init_state(spec: FrameSpec, channels: int = 0) -> StreamState:
+def init_state(spec: FrameSpec, dtype=None, channels: int = 0) -> StreamState:
     """``channels`` 0 = a single stream (scalar state); C > 0 = C independent
     channel streams (leading axis [C] on every state field and on the blocks
-    fed to ``process_buffer``).  The state lies on the spec's device."""
+    fed to ``process_buffer``).  The carry is complex, of ``dtype`` (default
+    the spec's; a real dtype names its complex counterpart, as the JAX
+    package's re/im carry does).  The state lies on the spec's device."""
+    dtype = _COMPLEX_OF.get(dtype, dtype) or spec.dtype
     lead = (channels,) if channels else ()
     dev = spec.device
     return StreamState(
-        carry=torch.zeros((*lead, spec.cfg.frame_len), dtype=spec.dtype,
+        carry=torch.zeros((*lead, spec.cfg.frame_len), dtype=dtype,
                           device=dev),
         carry_valid=torch.zeros(lead, dtype=torch.bool, device=dev),
         next_min_pos=torch.zeros(lead, dtype=torch.int32, device=dev),
         frames_seen=torch.zeros(lead, dtype=torch.int32, device=dev),
     )
+
+
+def dense_preamble_corr(spec: FrameSpec, ring: torch.Tensor) -> torch.Tensor:
+    """Normalized matched-filter score at every lag of ``ring`` [..., n]
+    (see ``ops.sync.matched_filter_scores``)."""
+    return sync.matched_filter_scores(spec, ring)
 
 
 def extract_hits(spec: FrameSpec, score: torch.Tensor, min_pos: torch.Tensor,
@@ -267,7 +279,7 @@ def process_buffer(spec: FrameSpec, state: StreamState, block: torch.Tensor,
         if lead:
             raise NotImplementedError(
                 "dense sync_mode is single-channel only")
-        score = sync.matched_filter_scores(spec, ring)
+        score = dense_preamble_corr(spec, ring)
         positions, valid = extract_hits(spec, score, state.next_min_pos,
                                         max_frames)
 

@@ -204,6 +204,22 @@ def ofdm_modulate(spec, points: torch.Tensor, num_symb: int) -> torch.Tensor:
     return torch.cat([time[..., -cfg.cp_size:], time], dim=-1)
 
 
+def unwrap_one_step(phase: torch.Tensor) -> torch.Tensor:
+    """The reference's non-accumulating unwrap (`OFDM/Frame.hpp:407-414`):
+    each element shifted by at most ±2π relative to its corrected
+    predecessor.  Runs serially along the last axis (one step per element);
+    leading dims are vectorized."""
+    prev = phase[..., 0]
+    out = [prev]
+    for k in range(1, phase.shape[-1]):
+        cur = phase[..., k]
+        d = cur - prev
+        prev = torch.where(d > np.pi, cur - 2 * np.pi,
+                           torch.where(d < -np.pi, cur + 2 * np.pi, cur))
+        out.append(prev)
+    return torch.stack(out, dim=-1)
+
+
 def unwrap_fast(phase: torch.Tensor) -> torch.Tensor:
     """Accumulating unwrap via diff + round + cumsum along the last axis.
     Identical to the reference's non-accumulating one-step unwrap
@@ -226,6 +242,7 @@ def preamble_demod(spec, preamble_sig: torch.Tensor) -> torch.Tensor:
 
 
 def chan_est_lq(spec, preamble_sig: torch.Tensor = None,
+                exact_unwrap: bool = False,
                 pre_points: torch.Tensor = None) -> torch.Tensor:
     """Linear-phase LS estimate over the lower half-band, mirrored to the
     upper half (`OFDM/Frame.hpp:389-434`), with the reference's exact fit
@@ -234,7 +251,8 @@ def chan_est_lq(spec, preamble_sig: torch.Tensor = None,
     as in the JAX package.
 
     preamble_sig [..., preamble_len] -> chan [..., num_data_subc]; callers may
-    pass already-demodulated ``pre_points`` instead."""
+    pass already-demodulated ``pre_points`` instead.  ``exact_unwrap`` takes
+    the reference's serial one-step unwrap in place of the parallel one."""
     cfg = spec.cfg
     pr = pre_points if pre_points is not None else preamble_demod(
         spec, preamble_sig)
@@ -242,7 +260,8 @@ def chan_est_lq(spec, preamble_sig: torch.Tensor = None,
     lead = pr.shape[:-1]
     ratio = (pr / spec.tensors["pre_points"]).reshape(
         *lead, cfg.num_pr_symb, cfg.num_data_subc).mean(dim=-2)
-    phase = unwrap_fast(torch.angle(ratio[..., :half]))
+    unwrap = unwrap_one_step if exact_unwrap else unwrap_fast
+    phase = unwrap(torch.angle(ratio[..., :half]))
     i = spec.tensors["chan_i"]
     sx, sxx = i.sum(), (i * i).sum()
     sy = phase.sum(-1)

@@ -3,11 +3,13 @@
 
 Reference semantics (`OFDM/modulation.cpp`): non-Gray square QAM with the real
 index in the low half-bits and imaginary in the high half-bits, diagonal BPSK
-at 5π/4, hard decision by clamp + round on the peak-normalized grid.
-``soft_llrs`` is not ported yet (ROADMAP.md, Queue 1, "MAC").
+at 5π/4, hard decision by clamp + round on the peak-normalized grid, and
+max-log soft LLRs (``soft_llrs``), which the reference lacks.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -81,3 +83,28 @@ def hard_demap(points: torch.Tensor, mod_type: int) -> torch.Tensor:
 def demap_bytes(points: torch.Tensor, mod_type: int) -> torch.Tensor:
     """points [..., nsym] -> uint8 [..., nsym*mod_type/8] via hard decision."""
     return bitops.symbols_to_bytes(hard_demap(points, mod_type), mod_type)
+
+
+@functools.lru_cache(maxsize=32)
+def _llr_tables(mod_type: int, dtype: torch.dtype, device: torch.device):
+    """(constellation [S] in ``dtype``, bit-is-0 mask [mod_type, S]) on
+    ``device``: bit b of each symbol index, MSB first to match
+    ``bytes_to_symbols``."""
+    table = constellation(mod_type)
+    idx = np.arange(table.size)
+    bit_of = (idx[:, None] >> np.arange(mod_type - 1, -1, -1)[None, :]) & 1
+    return (torch.as_tensor(table, dtype=dtype, device=device),
+            torch.as_tensor((bit_of == 0).T, device=device))
+
+
+def soft_llrs(points: torch.Tensor, mod_type: int,
+              noise_var: float = 1.0) -> torch.Tensor:
+    """Max-log LLRs, [..., nsym, mod_type]; positive favours bit 0, bits MSB
+    first, divided by ``noise_var``.  Not present in the reference
+    (hard-decision only)."""
+    tbl, mask0 = _llr_tables(mod_type, points.dtype, points.device)
+    d2 = (points[..., None] - tbl).abs() ** 2            # [..., nsym, S]
+    d2 = d2[..., None, :]                                # [..., nsym, 1, S]
+    d0 = torch.where(mask0, d2, torch.inf).amin(-1)      # [..., nsym, nbits]
+    d1 = torch.where(~mask0, d2, torch.inf).amin(-1)
+    return (d1 - d0) / noise_var

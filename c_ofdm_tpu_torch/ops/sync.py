@@ -10,9 +10,6 @@ total energy from Parseval in the time domain.  The streaming receiver adds
 the 50%-overlap hop track, the FFT and overlap-save branches of
 ``matched_filter_scores`` (``torch.fft``) and the sliding-window sidelobe
 suppression.
-
-Not ported yet: sync at a nonzero detector start (ROADMAP.md, Queue 1,
-"float64 oracle remainder").
 """
 
 from __future__ import annotations
@@ -22,8 +19,6 @@ import torch
 
 from . import fft as fftops
 
-NOT_PORTED = ("{} is not ported yet (ROADMAP.md, Queue 1, 'float64 oracle "
-              "remainder')")
 # chunk length of the overlap-save matched filter (long captures)
 OVERLAP_SAVE_LEN = 4096
 
@@ -193,18 +188,35 @@ def first_above_peak(track: torch.Tensor, level: float,
     return torch.where(found, refine_to_peak(track, idx, radius), idx), found
 
 
-def find_t2sin(spec, capture: torch.Tensor, start: int = 0,
+def find_t2sin(spec, capture: torch.Tensor, start=0,
                backend: str = "partial"):
-    """Sample index of the first detected block (blocks aligned to the
-    capture start), or -1, with the trailing partial block dropped
-    (`T2SIN_FORM::find_t2sin`, `OFDM/Frame.hpp:150-197`).
-    capture [..., n] -> (t2_begin [...], found [...])."""
-    if not (isinstance(start, int) and start == 0):
-        raise NotImplementedError(NOT_PORTED.format("find_t2sin at start != 0"))
+    """Sample index of the first detected block at/after ``start`` (blocks
+    aligned to ``start``), or -1, with the trailing partial block dropped
+    (`T2SIN_FORM::find_t2sin`, `OFDM/Frame.hpp:150-197`).  capture [..., n];
+    ``start`` an int or an integer tensor broadcasting over the leading dims
+    (one start per row) -> (t2_begin [...], found [...]).  Blocks that would
+    run past the end of the capture are invalid."""
     size = spec.cfg.t2sin_size
-    track = t2_ratio_track(spec, capture, backend)
-    idx, found = first_above(track, spec.cfg.t2_sin_level)
-    return torch.where(found, idx * size, -1), found
+    n = capture.shape[-1]
+    level = spec.cfg.t2_sin_level
+    if isinstance(start, int) and start == 0:
+        # the receivers' case: every block lies inside the capture
+        idx, found = first_above(t2_ratio_track(spec, capture, backend), level)
+        return torch.where(found, idx * size, -1), found
+    # the capture from the start clamped to [0, n], zero-padded to n samples
+    # (the JAX package's jax_dynamic_window); blocks that reach into the
+    # padding are invalid
+    if isinstance(start, int):
+        s = min(max(start, 0), n)
+        shifted = torch.nn.functional.pad(capture[..., s:], (0, s))
+        room = n - start
+    else:
+        shifted = window_rows(capture, torch.clamp(start, 0, n), n)
+        room = (n - start)[..., None]
+    track = t2_ratio_track(spec, shifted, backend)
+    ends = (torch.arange(track.shape[-1], device=track.device) + 1) * size
+    idx, found = first_above(torch.where(ends <= room, track, 0.0), level)
+    return torch.where(found, idx * size + start, -1), found
 
 
 def _toeplitz_mf_np(mf: np.ndarray, L: int) -> np.ndarray:
@@ -292,10 +304,12 @@ def matched_filter_scores(spec, x: torch.Tensor) -> torch.Tensor:
 
 def window_rows(x: torch.Tensor, start: torch.Tensor,
                 length: int) -> torch.Tensor:
-    """x [B, n], start [B] (>= 0) -> [B, length] with out[b, j] =
-    x[b, start_b + j], zero where start_b + j runs past the end."""
+    """x [..., n], start [...] (>= 0, broadcasting over x's leading dims)
+    -> [..., length] with out[..., j] = x[..., start + j], zero where
+    start + j runs past the end."""
     n = x.shape[-1]
-    idx = start[:, None] + torch.arange(length, device=x.device)
+    idx = start[..., None] + torch.arange(length, device=x.device)
+    idx = idx.expand(*x.shape[:-1], length)
     past = idx >= n
     out = torch.gather(x, -1, torch.clamp(idx, max=n - 1))
     return out.masked_fill(past, 0)
@@ -305,7 +319,12 @@ def preamble_corr_track(spec, capture: torch.Tensor,
                         start: torch.Tensor) -> torch.Tensor:
     """Normalized matched-filter correlation at lags [start, start +
     sync_window) of each row: capture [B, n], start [B] -> [B, sync_window].
-    Positions whose window energy is <= 1 score 0 (`Frame.cpp:357-364`)."""
+    Positions whose window energy is <= 1 score 0 (`Frame.cpp:357-364`).
+
+    ``start`` is a multiple of t2sin_size, as the two-tone detector gives
+    it from a block-aligned capture start (the JAX package reads its window
+    from the block that holds any other start; ``models.rx.synchronize``
+    reproduces that)."""
     L = spec.cfg.pr_sin_len
     W = spec.cfg.sync_window
     region = window_rows(capture, start, W + L)

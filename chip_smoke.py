@@ -10,7 +10,9 @@ matmul_bf16, ct and ct_bf16; the wideband 8k-QAM64 step under ct (B = 128
 frames of 27 904 samples, bench.py's wideband geometry); and the streaming
 receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 246 656 samples, S = 4 consecutive buffers at C = 1, 8 and 64 channels,
-and C = 8 under pallas).  Phases, each printing its lines:
+and C = 8 under pallas); and the MAC-framed link loop (``Mac``, the channel
+simulator ``apply_channel``, the batch and streaming receivers).  Phases,
+each printing its lines:
 
   1 device    the card, its name and power limit (nvidia-smi)
   2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
@@ -74,6 +76,31 @@ and C = 8 under pallas).  Phases, each printing its lines:
               [256, 6016] and [128, 32000]; each beside its byte bound, the
               class the path runs and the fastest body; K2's frame windows
               at all-even and all-odd starts
+
+ 20 mac       the MAC codec at B = 256 for spread = mod_type 1, 2, 4, 6, 8
+              at each config's frame_bytes, crc on and off: write equal to
+              the CPU run and read back; read_bytes, read_soft and read_llr
+              of noisy inputs equal to the CPU run in every field; crc16
+              against the table walk in numpy on random lengths; one write
+              and one read_soft under set_sync_debug_mode("error"); CUDA
+              kernels and device time per call of write, read_soft, crc16
+              and the rejected byte-serial table walk (torch.profiler)
+ 21 link-batch  B = 256 payloads -> Mac.write -> transmit -> apply_channel
+              (four sets of 64 frames: the channels of
+              tests/test_mac_channel.py:64-103, noise from a generator on the
+              card) -> receive_batch -> read_soft: every frame at its set's
+              timing offset, payloads and seq exact, CRC valid, K1 once;
+              read_llr(soft_llrs) the same; one set with phi0 and noise
+              drawn on the CPU equal to the port's CPU run; apply_channel's
+              device time at [64, capture]
+ 22 link-stream  bench.py's MAC-framed rings (Mac.write, fill 0.8, random
+              gaps, CFO 1e-4, amplitude 60, 26 dB) at C = 1 and 8, S = 4
+              buffers: every planted frame decoded exactly once, in order, at
+              its planted start, read_soft of every valid slot gives seq and
+              payload exact with the CRC valid, K2 (C = 1) or K3 (C = 8)
+              twice per buffer; then the +-20 ppm sample-clock stream of
+              tests/test_mac_channel.py:106-142 through apply_channel on the
+              card: all 12 frames CRC-clean, in order
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -305,14 +332,17 @@ def run_ring_kernel_checks(dev):
     return worst
 
 
-def streaming_buffers(spec, C, seed):
+def streaming_buffers(spec, C, seed, mac=None):
     """S consecutive ingest buffers per channel, made on the spec's device
     as bench.py::_make_rings_cpu makes them: int(0.8 * S * buf / frame_len)
-    frames of random frame_bytes payloads (``transmit``) per channel at
-    multinomial random gaps, CFO 1e-4 cycles/sample, amplitude 60, AWGN at
-    26 dB SNR.  Returns (blocks [S, C, buf] complex64, or [S, buf] at
-    C = 1; per channel the planted (start, payload) of each frame that
-    fits in the S buffers)."""
+    frames per channel at multinomial random gaps, CFO 1e-4 cycles/sample,
+    amplitude 60, AWGN at 26 dB SNR.  The frames carry random frame_bytes
+    payloads, or with ``mac`` (bench.py's ``Mac(frame_bytes,
+    spread=mod_type)``) random mac.payload bytes written by ``mac.write``
+    with seq 0, 1, ... per channel (``transmit`` either way).  Returns
+    (blocks [S, C, buf] complex64, or [S, buf] at C = 1; per channel the
+    planted (start, frame bytes) of each frame that fits in the S buffers,
+    in order; the payloads [C, frames, bytes] as drawn)."""
     from c_ofdm_tpu_torch.models import tx
     cfg = spec.cfg
     dev = spec.device
@@ -320,12 +350,17 @@ def streaming_buffers(spec, C, seed):
     total = S * buf
     rng = np.random.default_rng(seed)
     nf = int(0.8 * total / cfg.frame_len)
-    payload = rng.integers(0, 256, (C, nf, cfg.frame_bytes), dtype=np.uint8)
+    width = mac.payload if mac else cfg.frame_bytes
+    payload = rng.integers(0, 256, (C, nf, width), dtype=np.uint8)
     gaps = np.stack([rng.multinomial(total - nf * cfg.frame_len,
                                      np.ones(nf + 1) / (nf + 1))
                      for _ in range(C)])
     starts = np.cumsum(gaps[:, :nf], axis=1) + cfg.frame_len * np.arange(nf)
-    frames = tx.transmit(spec, torch.from_numpy(payload).to(dev))
+    wire = torch.from_numpy(payload).to(dev)
+    if mac:
+        wire = mac.write(wire, torch.arange(nf, device=dev))
+    frames = tx.transmit(spec, wire)
+    wire = wire.cpu().numpy()
     flat = torch.from_numpy(starts + total * np.arange(C)[:, None]).to(dev)
     idx = flat[..., None] + torch.arange(cfg.frame_len, device=dev)
     sig = torch.zeros(C * total, dtype=torch.complex64, device=dev)
@@ -339,9 +374,9 @@ def streaming_buffers(spec, C, seed):
     sig = (sig.view(C, total) * rot.to(torch.complex64)
            + torch.complex(noise[0], noise[1]) * std)
     blocks = sig.view(C, S, buf).transpose(0, 1).contiguous()
-    truth = [[(int(s), payload[c, i]) for i, s in enumerate(starts[c])
+    truth = [[(int(s), wire[c, i]) for i, s in enumerate(starts[c])
               if s + cfg.frame_len < total] for c in range(C)]
-    return (blocks[:, 0].contiguous() if C == 1 else blocks), truth
+    return (blocks[:, 0].contiguous() if C == 1 else blocks), truth, payload
 
 
 def check_truth(spec, outs, truth, C):
@@ -519,7 +554,7 @@ def run_pallas_stream(dev, data):
     cfg = ModemConfig()
     spec = make_frame_spec(cfg, torch.complex64, device=dev,
                            fft_backend="pallas")
-    blocks, truth = data
+    blocks, truth, _ = data
     rxr = streaming.StreamingReceiver(spec, channels=C)
     outs, per_buf = [], []
     for blk in blocks:
@@ -1197,6 +1232,395 @@ def gather_timing(dev):
             del xs
 
 
+def crc16_scan(data):
+    """The byte-serial CRC16-CCITT table walk of the JAX package's
+    ``lax.scan`` (c_ofdm_tpu/mac/mac.py:44-57), one step per byte, eagerly
+    on the data's device: the form ``Mac``'s crc16 does not take.  Phase 20
+    times it beside the matrix form; the port never calls it."""
+    from c_ofdm_tpu_torch.mac import mac as macm
+    table = torch.from_numpy(macm._CRC_TABLE.astype(np.int64)).to(data.device)
+    x = data.to(torch.int64)
+    crc = torch.full(data.shape[:-1], 0xFFFF, dtype=torch.int64,
+                     device=data.device)
+    for k in range(data.shape[-1]):
+        crc = ((crc << 8) & 0xFFFF) ^ table[((crc >> 8) ^ x[..., k]) & 0xFF]
+    return crc
+
+
+def profile_call(fn, reps):
+    """(device ms per call, CUDA kernels per call) of fn over reps calls,
+    torch.profiler; and the wall ms per call by CUDA events."""
+    from torch.autograd import DeviceType
+    fn(0)
+    torch.cuda.synchronize()
+    wall = statistics.median(cuda_ms(fn, reps) for _ in range(3))
+    ms, events = device_ms(fn, reps)
+    kernels = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA) / reps
+    return ms, kernels, wall
+
+
+def noisy_reads(mac, wire, rng):
+    """Inputs of the three read paths made from wire bytes [B, frame_bytes]
+    (numpy): the bytes with 2% of the bits flipped (ties of the majority
+    vote included), one re+im metric per logical bit and one LLR per wire
+    bit, both with noise, signs from the wire; row 0 of each clean."""
+    B = wire.shape[0]
+    bits = np.unpackbits(wire, axis=-1)
+    flips = rng.random(bits.shape) < 0.02
+    flips[0] = False
+    hard = np.packbits(bits ^ flips, axis=-1)
+    lbits = bits[:, ::mac.spread].astype(np.float32)
+    diag = (2 * lbits - 1) * (1 + 0.5 * rng.standard_normal(lbits.shape))
+    diag[0] = 2 * lbits[0] - 1
+    sgn = 1 - 2 * bits.astype(np.float32)
+    llr = sgn + 0.8 * rng.standard_normal(bits.shape).astype(np.float32)
+    llr[0] = sgn[0]
+    return {"read_bytes": hard, "read_soft": diag.astype(np.float32),
+            "read_llr": llr.reshape(B, -1, mac.spread)}
+
+
+def run_mac(dev):
+    """Phase 20: the MAC codec on the card.  Returns nothing."""
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.mac import mac as macm
+    rng = np.random.default_rng(SEED + 20)
+    for mod in (1, 2, 4, 6, 8):
+        cfg = ModemConfig(mod_type=mod)
+        for crc in (True, False):
+            mac = macm.Mac(frame_bytes=cfg.frame_bytes, spread=mod, crc=crc)
+            payload = torch.from_numpy(rng.integers(
+                0, 256, (B, mac.payload), dtype=np.uint8))
+            seq = torch.from_numpy(rng.integers(0, 2**32, B, dtype=np.int64))
+            wire_c = mac.write(payload, seq)
+            wire_d = mac.write(payload.to(dev), seq.to(dev))
+            check(torch.equal(wire_d.cpu(), wire_c),
+                  f"mac: write differs from the CPU run (mod {mod}, crc "
+                  f"{crc})")
+            clean = mac.read_bytes(wire_d)
+            check(bool(clean.valid.all()) and torch.equal(
+                clean.payload.cpu(), payload) and torch.equal(
+                clean.seq.cpu(), seq), f"mac: mod {mod} crc {crc}: the "
+                f"written frames do not read back")
+            inputs = noisy_reads(mac, wire_c.numpy(), rng)
+            n_valid = {}
+            for name, x in inputs.items():
+                read = getattr(mac, name)
+                cpu = read(torch.from_numpy(x))
+                card = read(torch.from_numpy(x).to(dev))
+                for field, a, b in zip(macm.MacFrame._fields, cpu, card):
+                    check(b.device.type == "cuda" and torch.equal(a, b.cpu()),
+                          f"mac: {name} {field} differs from the CPU run "
+                          f"(mod {mod}, crc {crc})")
+                check(bool(card.valid[0]), f"mac: {name} rejects a clean "
+                      f"row (mod {mod}, crc {crc})")
+                n_valid[name] = int(card.valid.sum())
+            say("mac", f"mod {mod} (spread {mod}, frame_bytes "
+                f"{cfg.frame_bytes}), crc {crc}: B={B} write equal to the "
+                f"CPU run and read back exactly; read_bytes / read_soft / "
+                f"read_llr of noisy inputs equal to the CPU run in every "
+                f"field (valid rows {n_valid})")
+
+    # crc16 on random lengths against the table walk in numpy
+    lengths = sorted({1, 254, 300, *rng.integers(1, 301, 6).tolist()})
+    for n in lengths:
+        data = rng.integers(0, 256, (64, n), dtype=np.uint8)
+        want = np.full(64, 0xFFFF, dtype=np.int64)
+        table = macm._CRC_TABLE.astype(np.int64)
+        for k in range(n):
+            want = ((want << 8) & 0xFFFF) ^ table[((want >> 8) ^ data[:, k])
+                                                  & 0xFF]
+        got = macm.crc16(torch.from_numpy(data).to(dev)).cpu().numpy()
+        check(np.array_equal(got, want), f"mac: crc16 differs from the table "
+              f"walk at n = {n}")
+    say("mac", f"crc16 (matrix form) on the card equals the table walk in "
+        f"numpy at lengths {lengths}, 64 rows each")
+
+    # no host synchronisation in one write and one read_soft
+    cfg = ModemConfig()
+    mac = macm.Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
+    payload = torch.from_numpy(rng.integers(
+        0, 256, (B, mac.payload), dtype=np.uint8)).to(dev)
+    seq = torch.arange(B, device=dev)
+    diag = torch.randn(B, mac.logical_bytes * 8, device=dev)
+    wire = mac.write(payload, seq)
+    mac.read_soft(diag)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wire2 = mac.write(payload, seq)
+        frame = mac.read_soft(diag)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(wire, wire2) and frame.valid.shape == (B,),
+          "mac: the runs under sync debug mode differ")
+    say("mac", f"one write and one read_soft at B={B} ran under "
+        f"set_sync_debug_mode('error') with no host synchronisation")
+
+    # launches and device time per call at the stock config
+    body = torch.cat([wire[:, :6], payload], dim=-1)
+    check(torch.equal(crc16_scan(body), macm.crc16(body)),
+          "mac: the table walk and the matrix form disagree")
+    short = body[:, :64].contiguous()
+    counts = {}
+    for label, fn, reps in (
+            ("write", lambda i: mac.write(payload, seq), 20),
+            ("read_soft", lambda i: mac.read_soft(diag), 20),
+            (f"crc16 [{B},{body.shape[1]}] (matrix form)",
+             lambda i: macm.crc16(body), 20),
+            (f"crc16 [{B},64] (matrix form)", lambda i: macm.crc16(short), 20),
+            (f"crc16 [{B},{body.shape[1]}] table walk (rejected: one step "
+             f"per byte)", lambda i: crc16_scan(body), 3)):
+        ms, kernels, wall = profile_call(fn, reps)
+        counts[label] = kernels
+        say("mac", f"{label} at B={B}, stock config: {kernels:.0f} CUDA "
+            f"kernels per call, device {ms * 1e3:.2f} us per call "
+            f"(torch.profiler over {reps} calls), wall {wall * 1e3:.1f} us "
+            f"per call with host dispatch (CUDA events)")
+    check(counts[f"crc16 [{B},64] (matrix form)"]
+          == counts[f"crc16 [{B},{body.shape[1]}] (matrix form)"],
+          f"mac: crc16's kernel count grows with the byte count {counts}")
+
+
+LINK_SETS = (   # tests/test_mac_channel.py:64-103, 64 frames each
+    dict(snr_db=25.0, cfo=0.0, timing_offset=0),
+    dict(snr_db=20.0, cfo=3e-4, timing_offset=1234),
+    dict(snr_db=15.0, cfo=-2e-4, timing_offset=4096, quantize_mult="mult",
+         amplitude=80.0),
+    dict(snr_db=25.0, cfo=1e-4, timing_offset=500, multipath=(0.15 + 0.1j,),
+         amplitude=50.0),
+)
+LINK_EXTRA = 4096 + 2048   # every capture is frame_len + LINK_EXTRA samples
+
+
+def link_params(cfg):
+    """The four ChannelParams of LINK_SETS at one capture length."""
+    from c_ofdm_tpu_torch.channel.sim import ChannelParams
+    out = []
+    for kw in LINK_SETS:
+        kw = dict(kw, capture_len=cfg.frame_len + LINK_EXTRA)
+        if kw.get("quantize_mult") == "mult":
+            kw["quantize_mult"] = cfg.mult
+        out.append(ChannelParams(**kw))
+    return out
+
+
+def link_receive(step, mac, caps):
+    """receive_batch (FlagshipStep.receive) then read_soft of each row's
+    re+im metric: (RxResult, SyncResult, MacFrame)."""
+    res, s = step.receive(caps)
+    return res, s, mac.read_soft(res.constellation.real
+                                 + res.constellation.imag)
+
+
+def run_link_batch(dev):
+    """Phase 21: payload bytes -> Mac.write -> transmit -> apply_channel ->
+    receive_batch -> read_soft, B = 256 in four channel sets of 64."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.channel.sim import apply_channel
+    from c_ofdm_tpu_torch.mac.mac import Mac
+    from c_ofdm_tpu_torch.models import tx
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    from c_ofdm_tpu_torch.ops import extract, modulation
+    cfg = ModemConfig()
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend="matmul"))
+    spec = step.bound_spec()
+    mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
+    rng = np.random.default_rng(SEED + 21)
+    payload_np = rng.integers(0, 256, (B, mac.payload), dtype=np.uint8)
+    payload = torch.from_numpy(payload_np).to(dev)
+    params = link_params(cfg)
+    per = B // len(params)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    # ---- the main path, counts from 0
+    extract.extract_windows.launches = 0
+    wire = mac.write(payload, torch.arange(B, device=dev))
+    frames = tx.transmit(spec, wire)
+    caps = torch.cat([apply_channel(p, frames[i * per:(i + 1) * per],
+                                    generator=g)
+                      for i, p in enumerate(params)])
+    res, s, fr = link_receive(step, mac, caps)
+    torch.cuda.synchronize()
+    k1 = extract.extract_windows.launches
+    check(k1 == 1, f"link-batch: K1 launched {k1} times in one receive")
+    want_start = np.repeat([p.timing_offset for p in params], per)
+    check(bool(s.found.all()), "link-batch: a frame was not found")
+    check(np.array_equal(s.frame_start.cpu().numpy(), want_start),
+          "link-batch: frame_start != the set's timing offset")
+    check(bool(fr.valid.all()), f"link-batch: {int((~fr.valid).sum())} "
+          f"frames fail the CRC")
+    check(np.array_equal(fr.seq.cpu().numpy(), np.arange(B)),
+          "link-batch: seq differs")
+    check(torch.equal(fr.payload, payload), "link-batch: payload differs")
+    llr = modulation.soft_llrs(res.constellation, cfg.mod_type)
+    fl = mac.read_llr(llr)
+    check(bool(fl.valid.all()) and torch.equal(fl.payload, payload)
+          and torch.equal(fl.seq, fr.seq),
+          "link-batch: read_llr(soft_llrs) gives other frames")
+    say("link-batch", f"B={B} MAC frames (payload {mac.payload} bytes, seq "
+        f"0..{B - 1}) through transmit, apply_channel in 4 sets of {per} "
+        f"({', '.join(f'{p.snr_db:g} dB cfo {p.cfo:g} timing '
+                      f'{p.timing_offset}' for p in params)}; captures "
+        f"{tuple(caps.shape)}) and receive_batch: every frame found at its "
+        f"set's timing offset, read_soft payloads and seq exact with the "
+        f"CRC valid, read_llr(soft_llrs) the same; K1 launches {k1}")
+
+    # ---- one set with phi0 and noise drawn on the CPU: card == CPU run
+    p = params[1]
+    n = caps.shape[-1]
+    gc = torch.Generator().manual_seed(SEED + 22)
+    phi0 = torch.rand(per, generator=gc) * (2 * np.pi)
+    noise = torch.randn(per, n, 2, generator=gc)
+    rows = slice(per, 2 * per)
+    cap_d = apply_channel(p, frames[rows], phi0=phi0.to(dev),
+                          noise=noise.to(dev))
+    res_d, s_d, fr_d = link_receive(step, mac, cap_d)
+    cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
+                                            device="cpu",
+                                            fft_backend="matmul"))
+    wire_c = mac.write(payload.cpu()[rows], torch.arange(per, 2 * per))
+    cap_c = apply_channel(p, tx.transmit(cpu_step.bound_spec(), wire_c),
+                          phi0=phi0, noise=noise)
+    res_c, s_c, fr_c = link_receive(cpu_step, mac, cap_c)
+    err = float((cap_d.cpu() - cap_c).abs().max() / cap_c.abs().max())
+    for name in ("frame_start", "t2_begin", "pr_begin", "found"):
+        check(torch.equal(getattr(s_d, name).cpu(), getattr(s_c, name)),
+              f"link-batch: {name} differs from the CPU run")
+    # the raw PHY bytes are hard QAM decisions: at 20 dB some symbols lie
+    # within float32 rounding of a decision boundary, so they are counted
+    # here, not required equal (the MAC frames below are)
+    raw = int((res_d.mac_bytes.cpu() != res_c.mac_bytes).sum())
+    for name, a, b in zip(fr_c._fields, fr_c, fr_d):
+        check(torch.equal(a, b.cpu()), f"link-batch: MacFrame {name} "
+              f"differs from the CPU run")
+    check(bool(fr_c.valid.all()) and torch.equal(fr_c.payload,
+                                                 payload.cpu()[rows]),
+          "link-batch: the CPU run does not decode the set")
+    say("link-batch", f"set 2 ({p.snr_db:g} dB, cfo {p.cfo:g}, timing "
+        f"{p.timing_offset}) with phi0 and noise drawn on the CPU: captures "
+        f"within {err:.2e} of max|x| of the CPU run; sync and every "
+        f"MacFrame field (payload, ids, seq, valid) equal to the port's CPU "
+        f"run; raw PHY bytes that differ: {raw} of "
+        f"{res_c.mac_bytes.numel()}")
+
+    for i, p in enumerate(params):
+        x = frames[i * per:(i + 1) * per]
+        ms, kernels, wall = profile_call(
+            lambda j, p=p, x=x: apply_channel(p, x, generator=g), 10)
+        say("link-batch", f"apply_channel set {i + 1} at [{per}, "
+            f"{cfg.frame_len}] -> [{per}, {n}]: device {ms * 1e3:.2f} us in "
+            f"{kernels:.0f} CUDA kernels per call (torch.profiler over 10), "
+            f"wall {wall * 1e3:.1f} us per call (CUDA events)")
+
+
+def stream_mac_frames(mac, outs, C):
+    """read_soft of every valid slot's diag, per channel in stream order:
+    lists of (seq, payload, valid)."""
+    got = [[] for _ in range(C)]
+    for out in outs:
+        fr = mac.read_soft(out.diag)
+        valid = out.valid.cpu().numpy().reshape(C, -1)
+        seq = fr.seq.cpu().numpy().reshape(C, -1)
+        ok = fr.valid.cpu().numpy().reshape(C, -1)
+        pl = fr.payload.cpu().numpy().reshape(C, valid.shape[1], -1)
+        for c in range(C):
+            for k in np.flatnonzero(valid[c]):
+                got[c].append((int(seq[c, k]), pl[c, k], bool(ok[c, k])))
+    return got
+
+
+def run_link_stream(dev):
+    """Phase 22: the streaming link loop on bench.py's MAC-framed rings at
+    C = 1 and 8, then the +-20 ppm sample-clock stream."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.channel.sim import ChannelParams, apply_channel
+    from c_ofdm_tpu_torch.mac.mac import Mac
+    from c_ofdm_tpu_torch.models import streaming, tx
+    from c_ofdm_tpu_torch.ops import extract
+    cfg = ModemConfig()
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="matmul")
+    mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
+    kernels = {1: extract.extract_windows_single,
+               8: extract.extract_windows_multi}
+    for C, fn in kernels.items():
+        blocks, truth, payload = streaming_buffers(spec, C, SEED + 30 + C,
+                                                   mac=mac)
+        rxr = streaming.StreamingReceiver(spec, channels=0 if C == 1 else C)
+        torch.cuda.synchronize()
+        # ---- the main path, counts from 0
+        for f in (extract.extract_windows, *kernels.values()):
+            f.launches = 0
+        per_buf, outs = [], []
+        for blk in blocks:
+            before = fn.launches
+            outs.append(rxr.feed(blk))
+            per_buf.append(fn.launches - before)
+        torch.cuda.synchronize()
+        other = [f.launches for f in (extract.extract_windows,
+                                      *kernels.values()) if f is not fn]
+        check(per_buf == [2] * S and not any(other),
+              f"link-stream C={C}: launches per buffer {per_buf}, others "
+              f"{other}")
+        n_frames = check_truth(spec, outs, truth, C)
+        got = stream_mac_frames(mac, outs, C)
+        for c in range(C):
+            want = len(truth[c])
+            check([g[0] for g in got[c]] == list(range(want)),
+                  f"link-stream C={C} channel {c}: seq "
+                  f"{[g[0] for g in got[c]]}")
+            check(all(ok for _, _, ok in got[c]),
+                  f"link-stream C={C} channel {c}: a CRC fails")
+            check(all(np.array_equal(pl, payload[c, i])
+                      for i, (_, pl, _) in enumerate(got[c])),
+                  f"link-stream C={C} channel {c}: a payload differs")
+        say("link-stream", f"C={C}: {S} buffers of bench.py's MAC-framed "
+            f"rings, {n_frames} planted frames decoded exactly once, in "
+            f"order, at their planted starts; read_soft of every valid slot: "
+            f"seq 0.. in order, payloads exact, CRC valid; "
+            f"{'K2' if C == 1 else 'K3'} launches per buffer {per_buf}")
+
+    # ---- +-20 ppm sample clock (tests/test_mac_channel.py:106-142)
+    n_frames = 12
+    rng = np.random.default_rng(7)
+    buf = cfg.rx_buf_size * cfg.frame_len
+    for ppm in (20.0, -20.0):
+        payload = torch.from_numpy(rng.integers(
+            0, 256, (n_frames, mac.payload), dtype=np.uint8)).to(dev)
+        frames = tx.transmit(spec, mac.write(
+            payload, torch.arange(n_frames, device=dev)))
+        stream = torch.cat([torch.zeros(900, dtype=frames.dtype, device=dev),
+                            frames.reshape(-1)])
+        total = -(-stream.shape[0] // buf) * buf
+        params = ChannelParams(snr_db=24.0, cfo=1.5e-4, sco_ppm=ppm,
+                               capture_len=total, amplitude=60.0)
+        cap = apply_channel(params, stream, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        rxr = streaming.StreamingReceiver(spec, max_frames=16)
+        extract.extract_windows_single.launches = 0
+        outs = [rxr.feed(cap[i * buf:(i + 1) * buf])
+                for i in range(total // buf)]
+        torch.cuda.synchronize()
+        k2 = extract.extract_windows_single.launches
+        check(k2 == 2 * len(outs), f"link-stream sco {ppm:+g} ppm: K2 "
+              f"launched {k2} times in {len(outs)} buffers")
+        got = stream_mac_frames(mac, outs, 1)[0]
+        check(len(got) == n_frames, f"link-stream sco {ppm:+g} ppm: decoded "
+              f"{len(got)} of {n_frames}")
+        for i, (seq, pl, ok) in enumerate(got):
+            check(seq == i and ok and np.array_equal(
+                pl, payload[i].cpu().numpy()),
+                  f"link-stream sco {ppm:+g} ppm: frame {i} (seq {seq}, "
+                  f"valid {ok})")
+        say("link-stream", f"sco {ppm:+g} ppm stream ({n_frames} frames, "
+            f"24 dB, cfo 1.5e-4, amplitude 60, {tuple(cap.shape)} samples "
+            f"through apply_channel on the card): all {n_frames} frames "
+            f"CRC-clean, in order, payloads exact; K2 launches {k2} in "
+            f"{len(outs)} buffer(s)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1299,8 +1723,13 @@ def main():
     k4 = dft_timing(dev)
     t19 = time.perf_counter()
     gather_timing(dev)
-    say("gather-timing", f"phase took {time.perf_counter() - t19:.1f} s; "
-        f"all phases {time.perf_counter() - t_start:.1f} s")
+    say("gather-timing", f"phase took {time.perf_counter() - t19:.1f} s")
+
+    # ---- 20-22: the MAC-framed link loop
+    run_mac(dev)
+    run_link_batch(dev)
+    run_link_stream(dev)
+    say("link-stream", f"all phases {time.perf_counter() - t_start:.1f} s")
 
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"
     print(json.dumps({"kernels": [{

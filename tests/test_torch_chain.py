@@ -30,7 +30,7 @@ from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
 from c_ofdm_tpu_torch.models import rx as trx
 from c_ofdm_tpu_torch.models import tx as ttx
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
-from c_ofdm_tpu_torch.ops import extract, sync as tsync
+from c_ofdm_tpu_torch.ops import extract
 
 torch.set_num_threads(1)
 
@@ -196,12 +196,8 @@ def test_flagship_buffers_follow_module_to():
 
 
 def test_unported_branches_raise():
-    spec = make_frame_spec(ModemConfig(), torch.complex64, device="cpu")
     with pytest.raises(ValueError, match="fft_backend"):
         make_frame_spec(ModemConfig(), device="cpu", fft_backend="fftw")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tsync.find_t2sin(spec, torch.zeros((1, 6016), dtype=torch.complex64),
-                         start=5)
     with pytest.raises(ValueError):
         make_frame_spec(ModemConfig(), device="cpu", extract_backend="pallas")
     with pytest.raises(ValueError):
@@ -211,8 +207,9 @@ def test_unported_branches_raise():
 def test_port_never_imports_jax():
     """The port's package imports torch and numpy only: no source file
     imports jax, and building + running the flagship step and a streaming
-    buffer, and a pallas-backend step, in a fresh interpreter leaves jax and
-    the JAX package out of sys.modules."""
+    buffer, a pallas-backend step, the MAC codec and the channel simulator
+    in a fresh interpreter leaves jax and the JAX package out of
+    sys.modules."""
     pattern = re.compile(r"^\s*(import jax|from jax|import c_ofdm_tpu\b|"
                          r"from c_ofdm_tpu\b|from c_ofdm_tpu\.)", re.M)
     sources = sorted((REPO / "c_ofdm_tpu_torch").rglob("*.py"))
@@ -240,6 +237,15 @@ def test_port_never_imports_jax():
         "res, s = FlagshipStep(pspec)(torch.zeros((2, pspec.cfg.frame_bytes),"
         " dtype=torch.uint8))\n"
         "assert bool(s.found.all())\n"
+        "from c_ofdm_tpu_torch.channel.sim import ChannelParams, "
+        "apply_channel\n"
+        "from c_ofdm_tpu_torch.mac.mac import Mac\n"
+        "from c_ofdm_tpu_torch.oracle import reference\n"
+        "mac = Mac(frame_bytes=pspec.cfg.frame_bytes)\n"
+        "wire = mac.write(torch.zeros((2, mac.payload), dtype=torch.uint8), 1)\n"
+        "cap = apply_channel(ChannelParams(), c_ofdm_tpu_torch.models.tx."
+        "transmit(pspec, wire))\n"
+        "assert bool(mac.read_bytes(wire).valid.all())\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'c_ofdm_tpu'))\n"
         "assert not bad, bad\n")

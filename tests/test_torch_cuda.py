@@ -1,6 +1,6 @@
 """The port on the card: K1, K2, K3 and K4 against their plain versions,
-the flagship step (matmul and pallas backends) and one gated streaming
-buffer.
+the flagship step (matmul and pallas backends), one gated streaming buffer,
+and the MAC codec and channel simulator against their CPU runs.
 
 Every test here needs CUDA and skips without it.  This file imports no jax,
 so it also runs where jax is not installed:
@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+from c_ofdm_tpu_torch.channel.sim import ChannelParams, apply_channel
+from c_ofdm_tpu_torch.mac import mac as tmac
 from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
 from c_ofdm_tpu_torch.ops import dft, extract, fft
@@ -411,3 +413,100 @@ def test_pallas_complex128_takes_torch_fft(dev):
     torch.cuda.synchronize()
     assert dft.dft.launches == before
     assert torch.equal(res.mac_bytes, payload) and bool(s.found.all())
+
+
+def _mac_frames(mac, B, seed):
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, (B, mac.payload), dtype=np.uint8)
+    seq = rng.integers(0, 2**32, B, dtype=np.int64)
+    return torch.from_numpy(payload), torch.from_numpy(seq)
+
+
+@pytest.mark.parametrize("crc", [True, False])
+@pytest.mark.parametrize("mod", [1, 2, 4, 6, 8])
+def test_mac_on_card_equals_cpu(dev, mod, crc):
+    """write, then read_bytes / read_soft / read_llr of noisy inputs: every
+    field equal on the card and on the CPU."""
+    mac = tmac.Mac(frame_bytes=256 * mod, spread=mod, crc=crc)
+    payload, seq = _mac_frames(mac, 16, mod)
+    wire = mac.write(payload, seq)
+    wire_d = mac.write(payload.to(dev), seq.to(dev))
+    assert wire_d.device.type == "cuda"
+    assert torch.equal(wire_d.cpu(), wire)
+    g = torch.Generator().manual_seed(mod)
+    bits = ((wire[..., None] >> torch.arange(7, -1, -1)) & 1).reshape(16, -1)
+    flips = (torch.rand(bits.shape, generator=g) < 0.02).to(torch.uint8)
+    noisy = ((bits ^ flips).reshape(16, -1, 8)
+             * (1 << torch.arange(7, -1, -1))).sum(-1).to(torch.uint8)
+    diag = ((bits[:, ::mod].double() * 2 - 1)
+            + 0.5 * torch.randn(16, bits.shape[1] // mod, generator=g,
+                                dtype=torch.float64))
+    llr = ((1 - 2 * bits.double())
+           + 0.8 * torch.randn(bits.shape, generator=g,
+                               dtype=torch.float64)).reshape(16, -1, mod)
+    for read, x in ((mac.read_bytes, noisy), (mac.read_soft, diag),
+                    (mac.read_llr, llr)):
+        cpu, card = read(x), read(x.to(dev))
+        for name, a, b in zip(tmac.MacFrame._fields, cpu, card):
+            assert b.device.type == "cuda", name
+            assert torch.equal(a, b.cpu()), name
+    assert bool(mac.read_bytes(wire_d).valid.all())
+
+
+def test_crc16_on_card_equals_table(dev):
+    rng = np.random.default_rng(7)
+    for n in (1, 9, 254, 300):
+        data = rng.integers(0, 256, (256, n), dtype=np.uint8)
+        want = []
+        for row in data:
+            crc = 0xFFFF
+            for byte in row:
+                crc = ((crc << 8) & 0xFFFF) ^ int(
+                    tmac._CRC_TABLE[((crc >> 8) ^ int(byte)) & 0xFF])
+            want.append(crc)
+        got = tmac.crc16(torch.from_numpy(data).to(dev))
+        assert got.device.type == "cuda" and got.cpu().tolist() == want
+
+
+def test_mac_write_and_read_soft_make_no_host_sync(dev):
+    mac = tmac.Mac(frame_bytes=CFG.frame_bytes, spread=CFG.mod_type)
+    payload, seq = _mac_frames(mac, 256, 3)
+    payload, seq = payload.to(dev), seq.to(dev)
+    diag = torch.randn(256, mac.logical_bytes * 8, device=dev)
+    mac.read_soft(diag)                 # builds and caches crc16's matrix
+    wire = mac.write(payload, seq)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wire2 = mac.write(payload, seq)
+        fr = mac.read_soft(diag)
+        mac.write(payload, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(wire, wire2) and fr.valid.shape == (256,)
+
+
+def test_apply_channel_on_card_equals_cpu(dev):
+    """Explicit phi0 and noise: the card's output equals the CPU's within
+    1e-6 of max|x| (complex64; no int16 round trip, whose rounding at a
+    tie could turn a last-ulp difference into one LSB)."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy((rng.standard_normal((4, 3000))
+                          + 1j * rng.standard_normal((4, 3000))).astype(
+                              np.complex64))
+    params = ChannelParams(snr_db=15.0, cfo=-2e-4, timing_offset=400,
+                           capture_len=3900, multipath=(0.15 + 0.1j,),
+                           amplitude=80.0, sco_ppm=20.0)
+    phi0 = torch.from_numpy(rng.uniform(0, 2 * np.pi, 4).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((4, 3900, 2)).astype(
+        np.float32))
+    cpu = apply_channel(params, x, phi0=phi0, noise=noise)
+    card = apply_channel(params, x.to(dev), phi0=phi0.to(dev),
+                         noise=noise.to(dev))
+    assert card.device.type == "cuda" and card.shape == cpu.shape
+    err = float((card.cpu() - cpu).abs().max())
+    assert err <= 1e-6 * float(cpu.abs().max()), err
+    g1 = torch.Generator(device=dev).manual_seed(1)
+    g2 = torch.Generator(device=dev).manual_seed(1)
+    a = apply_channel(params, x.to(dev), generator=g1)
+    assert torch.equal(a, apply_channel(params, x.to(dev), generator=g2))

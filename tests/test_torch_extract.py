@@ -448,7 +448,7 @@ def test_streaming_gathers_get_starts_without_conversion(monkeypatch,
     lead = (channels,) if channels else ()
     block = torch.zeros((*lead, CFG.rx_buf_size * CFG.frame_len),
                         dtype=torch.complex64)
-    streaming.process_buffer(spec, streaming.init_state(spec, channels),
-                             block)
+    streaming.process_buffer(
+        spec, streaming.init_state(spec, channels=channels), block)
     assert seen == [(torch.int64, CFG.gated_search_lags + CFG.pr_sin_len),
                     (torch.int32, WIN)]
