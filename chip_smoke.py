@@ -11,8 +11,9 @@ frames of 27 904 samples, bench.py's wideband geometry); and the streaming
 receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 246 656 samples, S = 4 consecutive buffers at C = 1, 8 and 64 channels,
 and C = 8 under pallas); and the MAC-framed link loop (``Mac``, the channel
-simulator ``apply_channel``, the batch and streaming receivers).  Phases,
-each printing its lines:
+simulator ``apply_channel``, the batch and streaming receivers); and the
+command-line apps (``tx``, ``rx``, ``loopback``, ``ber-sweep``,
+``ingest-bench``).  Phases, each printing its lines:
 
   1 device    the card, its name and power limit (nvidia-smi)
   2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
@@ -101,6 +102,22 @@ each printing its lines:
               twice per buffer; then the +-20 ppm sample-clock stream of
               tests/test_mac_channel.py:106-142 through apply_channel on the
               card: all 12 frames CRC-clean, in order
+ 23 apps      the CLI (python -m c_ofdm_tpu_torch ...) on the card, each
+              app's main(argv) in-process: tx of a 1200-byte payload (gap
+              500) -> rx with --log, --metrics, --summary-json: the payload
+              decoded, every row CRC-clean with consecutive seq, K2 twice
+              per buffer; --drain metadata at --chunk 1 and 2 tallies what
+              the full drain decoded, --out empty; --native-ingest equal to
+              rx of the file its looping replay yields; the card equal to a
+              --device cpu run; a tx-written stream of 20 stock buffers
+              (738 frames, 19.2 MB of int16) decoded exactly, with
+              steady_samples_per_s, host_feed_s and device_drain_s printed
+              beside the card's name and power limit, then the same run
+              under torch.profiler: device time and kernels per buffer, and
+              the device's idle share of the first run's wall; loopback at 28 dB in
+              complex64 and --f64: ACCURACY: 1.0, exit 0, K1 once per call;
+              ber-sweep --mods 4 --snrs 12:29:8 --frames 4: BER 0 at 28 dB,
+              EVM falling with SNR; ingest-bench --buffers 50 --to-device
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -111,12 +128,14 @@ pallas and wideband steps to FILE.pallas and FILE.wideband.
 """
 
 import argparse
+import contextlib
 import io
 import itertools
 import json
 import math
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -205,7 +224,7 @@ def phase_device():
         f"{torch.cuda.device_count()}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, allow_tf32=False")
     print(smi, flush=True)
-    return dev
+    return dev, smi
 
 
 def phase_build():
@@ -1621,6 +1640,205 @@ def run_link_stream(dev):
             f"{len(outs)} buffer(s)")
 
 
+def _app(mod, argv):
+    """(exit code, stdout) of an app's main(argv), run in-process."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main([str(a) for a in argv])
+    return rc, out.getvalue()
+
+
+def _rx_app(d, tag, src, device, *extra):
+    """The rx app on ``src`` -> (decoded bytes, metrics rows, summary)."""
+    from c_ofdm_tpu_torch.apps import rxstream
+    rc, _ = _app(rxstream, ["--in", src, "--format", "i16",
+                            "--out", d / f"{tag}_decoded.bin",
+                            "--metrics", d / f"{tag}.jsonl",
+                            "--log", d / f"{tag}_LOG.txt",
+                            "--summary-json", d / f"{tag}.json",
+                            "--device", device, *extra])
+    check(rc == 0, f"apps: rx {tag} exited {rc}")
+    rows = [json.loads(ln) for ln in
+            (d / f"{tag}.jsonl").read_text().splitlines()]
+    return ((d / f"{tag}_decoded.bin").read_bytes(), rows,
+            json.loads((d / f"{tag}.json").read_text()))
+
+
+def same_rows(a, b, tag):
+    check(len(a) == len(b), f"apps: {tag}: {len(a)} rows against {len(b)}")
+    for g, w in zip(a, b):
+        check(all(g[k] == w[k] for k in ("buf", "slot", "pos", "seq",
+                                          "crc_ok"))
+              and abs(g["cfo"] - w["cfo"]) <= 1e-5,
+              f"apps: {tag}: row {g} against {w}")
+
+
+def run_apps(dev, card):
+    """Phase 23: the port's CLI (python -m c_ofdm_tpu_torch tx / rx /
+    loopback / ber-sweep / ingest-bench) on the card, in-process through
+    each app's main(argv), with the launch counts of K1 and K2 set to 0
+    before each run that reads them."""
+    from pathlib import Path
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.apps import (ber_sweep, ingest_bench, loopback,
+                                       txstream)
+    from c_ofdm_tpu_torch.ops import extract
+    t0 = time.perf_counter()
+    cfg = ModemConfig()
+    buf = cfg.rx_buf_size * cfg.frame_len
+    k2 = extract.extract_windows_single
+    build = Path(__file__).resolve().parent / "c_ofdm_tpu_torch" / "_build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        d = Path(tmp)
+        # ---- tx -> file -> rx, the main path of the CLI
+        payload = (b"The quick brown fox jumps over the lazy dog. " * 40)[:1200]
+        (d / "payload.bin").write_bytes(payload)
+        rc, _ = _app(txstream, ["--in", d / "payload.bin", "--out",
+                                d / "stream.bin", "--gap", 500,
+                                "--device", dev])
+        check(rc == 0, f"apps: tx exited {rc}")
+        torch.cuda.synchronize()
+        k2.launches = 0
+        full, rows, summ = _rx_app(d, "full", d / "stream.bin", dev)
+        torch.cuda.synchronize()
+        launches = k2.launches
+        check(payload in full[:len(payload) + 16],
+              "apps: the payload is not in decoded.bin")
+        check(len(rows) == 5 and all(r["crc_ok"] for r in rows)
+              and [r["seq"] for r in rows] == list(range(len(rows))),
+              f"apps: metrics rows {rows}")
+        check(launches == 2 * summ["buffers"] and summ["buffers"] >= 1,
+              f"apps: K2 launched {launches} times in {summ['buffers']} "
+              f"buffer(s)")
+        check("RX_STEP" in (d / "full_LOG.txt").read_text(),
+              "apps: LOG.txt has no RX_STEP")
+        say("apps", f"tx -> rx: {summ['frames']} frames of a 1200-byte "
+            f"payload (gap 500), payload in decoded.bin, every metrics row "
+            f"CRC-clean with seq 0..{len(rows) - 1}; K2 launches {launches} "
+            f"in {summ['buffers']} buffer(s)")
+
+        # ---- the metadata drains tally what the full drain decoded
+        pl = np.frombuffer(full, dtype=np.uint8).reshape(len(rows), -1)
+        ok = np.array([r["crc_ok"] for r in rows])
+        want = {"frames": len(rows), "crc_failures": int((~ok).sum()),
+                "max_seq": max(r["seq"] for r in rows if r["crc_ok"]),
+                "payload_checksum_u32":
+                    int(pl[ok].astype(np.int64).sum()) & 0xFFFFFFFF}
+        for chunk in (1, 2):
+            _, _, sm = _rx_app(d, f"meta{chunk}", d / "stream.bin", dev,
+                               "--drain", "metadata", "--chunk", chunk)
+            got = {k: sm[k] for k in want}
+            check(got == want, f"apps: --drain metadata --chunk {chunk}: "
+                  f"{got} against the full drain's {want}")
+            check((d / f"meta{chunk}_decoded.bin").stat().st_size == 0,
+                  f"apps: --drain metadata --chunk {chunk} wrote payloads")
+        say("apps", f"--drain metadata, --chunk 1 and 2: {want}, equal to "
+            f"the full drain; --out empty")
+
+        # ---- native ingest: the replay ring loops the file, so it is held
+        # against a file holding what the replay yields
+        raw = np.fromfile(d / "stream.bin", dtype=np.int16)
+        n_bufs = (d / "stream.bin").stat().st_size // (buf * 4) + 1
+        np.resize(raw, n_bufs * buf * 2).tofile(d / "replay.bin")
+        nat = _rx_app(d, "native", d / "stream.bin", dev, "--native-ingest")
+        rep = _rx_app(d, "replay", d / "replay.bin", dev)
+        check(nat[0] == rep[0] and payload in nat[0],
+              "apps: --native-ingest decoded other bytes than the replayed "
+              "file")
+        same_rows(nat[1], rep[1], "--native-ingest")
+        say("apps", f"--native-ingest: {nat[2]['frames']} frames in "
+            f"{nat[2]['buffers']} buffer(s) of the looped file, bytes and "
+            f"rows equal to rx of the file the replay yields")
+
+        # ---- the card against the CPU on the same file
+        cpu = _rx_app(d, "cpu", d / "stream.bin", "cpu")
+        check(cpu[0] == full, "apps: decoded bytes differ from the CPU run")
+        same_rows(rows, cpu[1], "card against CPU")
+        say("apps", f"card = CPU: decoded bytes equal, {len(rows)} metrics "
+            f"rows equal (cfo within 1e-5)")
+
+        # ---- a longer stream: 738 MAC frames, 20 stock buffers
+        n_long = 738
+        long_payload = np.random.default_rng(SEED + 23).integers(
+            0, 256, n_long * 248, dtype=np.uint8).tobytes()
+        (d / "long.bin").write_bytes(long_payload)
+        rc, _ = _app(txstream, ["--in", d / "long.bin", "--out",
+                                d / "long_stream.bin", "--gap", 500,
+                                "--device", dev])
+        check(rc == 0, f"apps: tx of the long stream exited {rc}")
+        torch.cuda.synchronize()
+        k2.launches = 0
+        got, lrows, ls = _rx_app(d, "long", d / "long_stream.bin", dev)
+        torch.cuda.synchronize()
+        check(ls["buffers"] == 20 and k2.launches == 40,
+              f"apps: long stream: {ls['buffers']} buffers, K2 launched "
+              f"{k2.launches} times")
+        check(got == long_payload and ls["crc_failures"] == 0
+              and [r["seq"] for r in lrows] == list(range(n_long)),
+              f"apps: long stream: {ls['frames']} frames, "
+              f"{ls['crc_failures']} CRC failures")
+        mbytes = (d / "long_stream.bin").stat().st_size / 1e6
+        say("apps", f"long stream ({mbytes:.2f} MB of int16, "
+            f"{ls['buffers']} buffers, {n_long} frames, all exact, K2 "
+            f"launches {k2.launches}) on {card}: steady_samples_per_s "
+            f"{ls['steady_samples_per_s']}, samples_per_s "
+            f"{ls['samples_per_s']}, wall_s {ls['wall_s']}, host_feed_s "
+            f"{ls['host_feed_s']}, device_drain_s {ls['device_drain_s']}, "
+            f"feed_bound {ls['feed_bound']}")
+        # the same run again under torch.profiler: the card's share of it
+        from torch.autograd import DeviceType
+        dev_ms, events = device_ms(
+            lambda i: _rx_app(d, "long_prof", d / "long_stream.bin", dev), 1)
+        n_k = sum(e.count for e in events
+                  if e.device_type == DeviceType.CUDA) / ls["buffers"]
+        per_buf = ls["wall_s"] * 1e3 / ls["buffers"]
+        say("apps", f"long stream under torch.profiler: device time "
+            f"{dev_ms / ls['buffers']:.4f} ms per buffer in {n_k:.0f} "
+            f"kernels (kernel sum over the run's {ls['buffers']} buffers); "
+            f"against the unprofiled run's {per_buf:.4f} ms of wall per "
+            f"buffer: device idle {1 - dev_ms / (ls['wall_s'] * 1e3):.1%}")
+
+        # ---- loopback, K1 once per call
+        for f64 in (False, True):
+            extract.extract_windows.launches = 0
+            rc, out = _app(loopback, ["--snr-db", 28, "--dump", d / "lb",
+                                      "--device", dev]
+                           + (["--f64"] if f64 else []))
+            torch.cuda.synchronize()
+            k1 = extract.extract_windows.launches
+            check(rc == 0 and "ACCURACY: 1.0" in out.splitlines(),
+                  f"apps: loopback {'c128' if f64 else 'c64'} exited {rc}: "
+                  f"{out}")
+            check(k1 == 1, f"apps: loopback launched K1 {k1} times")
+            evm = [ln for ln in out.splitlines() if ln.startswith("EVM")]
+            say("apps", f"loopback {'c128' if f64 else 'c64'} at 28 dB: "
+                f"ACCURACY: 1.0, exit 0, {evm[0]}, K1 launches {k1}")
+
+        # ---- ber-sweep
+        rc, _ = _app(ber_sweep, ["--mods", 4, "--snrs", "12:29:8",
+                                 "--frames", 4, "--out", d / "ber.jsonl",
+                                 "--device", dev])
+        ber = [json.loads(ln) for ln in
+               (d / "ber.jsonl").read_text().splitlines()]
+        evms = [r["evm_rms"] for r in ber]
+        check(rc == 0 and [r["snr_db"] for r in ber] == [12.0, 20.0, 28.0]
+              and ber[-1]["ber"] == 0.0 and evms == sorted(evms, reverse=True),
+              f"apps: ber-sweep rows {ber}")
+        say("apps", f"ber-sweep QAM16 at 12/20/28 dB: EVM {evms}, BER "
+            f"{[r['ber'] for r in ber]}")
+
+        # ---- ingest-bench
+        rc, out = _app(ingest_bench, ["--buffers", 50, "--to-device"])
+        line = json.loads(out.strip().splitlines()[-1])
+        check(rc == 0 and line["metric"] == "ingest_samples_per_s_to_device",
+              f"apps: ingest-bench printed {out}")
+        say("apps", f"ingest-bench --buffers 50 --to-device on {card}: "
+            f"{json.dumps(line)}")
+    say("apps", f"phase took {time.perf_counter() - t0:.1f} s")
+    return {"launches_k2": launches, "long": ls}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1631,7 +1849,7 @@ def main():
     args = ap.parse_args()
 
     t_start = time.perf_counter()
-    dev = phase_device()
+    dev, card = phase_device()
 
     from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
     from c_ofdm_tpu_torch.models import tx
@@ -1729,7 +1947,10 @@ def main():
     run_mac(dev)
     run_link_batch(dev)
     run_link_stream(dev)
-    say("link-stream", f"all phases {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 23: the CLI apps
+    run_apps(dev, card)
+    say("apps", f"all phases {time.perf_counter() - t_start:.1f} s")
 
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"
     print(json.dumps({"kernels": [{

@@ -207,8 +207,10 @@ def test_unported_branches_raise():
 def test_port_never_imports_jax():
     """The port's package imports torch and numpy only: no source file
     imports jax, and building + running the flagship step and a streaming
-    buffer, a pallas-backend step, the MAC codec and the channel simulator
-    in a fresh interpreter leaves jax and the JAX package out of
+    buffer, a pallas-backend step, the MAC codec and the channel simulator,
+    importing every ``io.*`` and ``apps.*`` module, and running
+    ``python -m c_ofdm_tpu_torch tx ... --device cpu`` and ``rx`` on its
+    stream in a fresh interpreter leaves jax and the JAX package out of
     sys.modules."""
     pattern = re.compile(r"^\s*(import jax|from jax|import c_ofdm_tpu\b|"
                          r"from c_ofdm_tpu\b|from c_ofdm_tpu\.)", re.M)
@@ -246,6 +248,23 @@ def test_port_never_imports_jax():
         "cap = apply_channel(ChannelParams(), c_ofdm_tpu_torch.models.tx."
         "transmit(pspec, wire))\n"
         "assert bool(mac.read_bytes(wire).valid.all())\n"
+        "import importlib, pkgutil, runpy, tempfile\n"
+        "import c_ofdm_tpu_torch.apps, c_ofdm_tpu_torch.io\n"
+        "for pkg in (c_ofdm_tpu_torch.apps, c_ofdm_tpu_torch.io):\n"
+        "    for m in pkgutil.iter_modules(pkg.__path__):\n"
+        "        importlib.import_module(pkg.__name__ + '.' + m.name)\n"
+        "d = tempfile.mkdtemp()\n"
+        "open(d + '/p.bin', 'wb').write(bytes(range(256)) * 2)\n"
+        "sys.argv = ['c_ofdm_tpu_torch', 'tx', '--in', d + '/p.bin', '--out',"
+        " d + '/s.bin', '--gap', '300', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('c_ofdm_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "from c_ofdm_tpu_torch.apps import rxstream\n"
+        "assert rxstream.main(['--in', d + '/s.bin', '--out', d + '/d.bin',"
+        " '--native-ingest', '--device', 'cpu']) == 0\n"
+        "assert open(d + '/d.bin', 'rb').read()[:512] == bytes(range(256)) * 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'c_ofdm_tpu'))\n"
         "assert not bad, bad\n")

@@ -510,3 +510,116 @@ def test_apply_channel_on_card_equals_cpu(dev):
     g2 = torch.Generator(device=dev).manual_seed(1)
     a = apply_channel(params, x.to(dev), generator=g1)
     assert torch.equal(a, apply_channel(params, x.to(dev), generator=g2))
+
+
+# ---- the apps on the card (python -m c_ofdm_tpu_torch tx / rx / loopback)
+
+def _app(mod, argv):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    return rc, buf.getvalue()
+
+
+@pytest.fixture
+def six_buffer_stream(dev, tmp_path):
+    """150 MAC frames with 3000-sample gaps written by the tx app on the
+    card: 1 352 400 samples, six stock buffers."""
+    from c_ofdm_tpu_torch.apps import txstream
+    payload = np.random.default_rng(11).integers(0, 256, 150 * 248,
+                                                 dtype=np.uint8).tobytes()
+    (tmp_path / "p.bin").write_bytes(payload)
+    assert txstream.main(["--in", str(tmp_path / "p.bin"), "--out",
+                          str(tmp_path / "s.bin"), "--gap", "3000",
+                          "--device", str(dev)]) == 0
+    return tmp_path, payload
+
+
+def _rx(d, tag, device, extra=()):
+    import json
+    from c_ofdm_tpu_torch.apps import rxstream
+    assert rxstream.main(["--in", str(d / "s.bin"), "--out",
+                          str(d / f"{tag}.bin"), "--metrics",
+                          str(d / f"{tag}.jsonl"), "--summary-json",
+                          str(d / f"{tag}.json"), "--device", str(device),
+                          *extra]) == 0
+    rows = [json.loads(ln) for ln in (d / f"{tag}.jsonl").read_text()
+            .splitlines()]
+    return ((d / f"{tag}.bin").read_bytes(), rows,
+            json.loads((d / f"{tag}.json").read_text()))
+
+
+def test_tx_rx_apps_on_card_equal_cpu(dev, six_buffer_stream):
+    """The card's rx of the card's tx file decodes every frame and equals
+    the CPU run: bytes, positions, seqs and CRC flags exact, cfo within
+    1e-5; K2 launched twice per buffer."""
+    d, payload = six_buffer_stream
+    before = extract.extract_windows_single.launches
+    card = _rx(d, "card", dev)
+    torch.cuda.synchronize()
+    k2 = extract.extract_windows_single.launches - before
+    cpu = _rx(d, "cpu", "cpu")
+    assert card[2]["buffers"] == 6 and k2 == 2 * 6
+    assert card[0] == cpu[0] and card[0][:len(payload)] == payload
+    assert len(card[1]) == len(cpu[1]) == 150
+    for g, w in zip(card[1], cpu[1]):
+        assert {k: g[k] for k in ("buf", "slot", "pos", "seq", "crc_ok")} \
+            == {k: w[k] for k in ("buf", "slot", "pos", "seq", "crc_ok")}
+        assert abs(g["cfo"] - w["cfo"]) <= 1e-5
+    assert [r["seq"] for r in card[1]] == list(range(150))
+
+
+def test_pinned_staging_equals_synchronous_copies(dev, six_buffer_stream):
+    """The rx app's pinned two-slot ring (side copy stream, each slot
+    reused three times) decodes the six buffers exactly as synchronous
+    copies into the same receiver do."""
+    from c_ofdm_tpu_torch.mac.mac import Mac
+    d, _ = six_buffer_stream
+    got, rows, _ = _rx(d, "pinned", dev)
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    mac = Mac(frame_bytes=CFG.frame_bytes, spread=CFG.mod_type)
+    rxr = streaming.StreamingReceiver(spec)
+    raw = np.fromfile(d / "s.bin", dtype=np.int16).reshape(-1, 2)
+    n = CFG.rx_buf_size * CFG.frame_len
+    want, want_rows = b"", []
+    for i in range(0, raw.shape[0], n):
+        block = np.zeros((n, 2), dtype=np.int16)
+        block[:len(raw[i:i + n])] = raw[i:i + n]
+        out = rxr.feed(torch.from_numpy(block).to(dev))
+        fr = mac.read_soft(out.diag)
+        for k in torch.nonzero(out.valid).flatten().tolist():
+            want += fr.payload[k].cpu().numpy().tobytes()
+            want_rows.append((int(out.positions[k]), int(fr.seq[k]),
+                              float(out.cfo[k])))
+    assert got == want
+    assert [(r["pos"], r["seq"]) for r in rows] == [w[:2] for w in want_rows]
+    assert max(abs(r["cfo"] - w[2]) for r, w in zip(rows, want_rows)) <= 1e-7
+
+
+@pytest.mark.parametrize("chunk", [2, 4])
+def test_rx_chunked_tallies_equal_chunk_1(dev, six_buffer_stream, chunk):
+    """--drain metadata: --chunk 2 (three full groups) and --chunk 4 (a
+    zero-padded tail group) tally what --chunk 1 does."""
+    d, payload = six_buffer_stream
+    one = _rx(d, "c1", dev, ["--drain", "metadata", "--chunk", "1"])[2]
+    many = _rx(d, f"c{chunk}", dev, ["--drain", "metadata", "--chunk",
+                                     str(chunk)])[2]
+    keys = ("buffers", "frames", "crc_failures", "max_seq",
+            "payload_checksum_u32")
+    assert {k: one[k] for k in keys} == {k: many[k] for k in keys}
+    assert one["frames"] == 150 and one["max_seq"] == 149
+    assert one["payload_checksum_u32"] == sum(payload) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("f64", [False, True])
+def test_loopback_app_on_card_launches_k1_once(dev, tmp_path, f64):
+    from c_ofdm_tpu_torch.apps import loopback
+    before = extract.extract_windows.launches
+    rc, out = _app(loopback, ["--snr-db", "28", "--dump", str(tmp_path),
+                              "--device", str(dev)]
+                   + (["--f64"] if f64 else []))
+    torch.cuda.synchronize()
+    assert rc == 0 and "ACCURACY: 1.0" in out, out
+    assert extract.extract_windows.launches == before + 1
