@@ -19,8 +19,7 @@ APPS = {
     "ber-sweep": ("apps.ber_sweep", "BER/EVM vs SNR sweep"),
     "plots": ("apps.plots", "post-run artifact plots (python_code/ofdm.py)"),
     "dashboard": ("apps.dashboard", "live metrics dashboard (frame_pipe.py)"),
-    # its module needs parallel/, which the port does not have yet
-    "scaling-bench": (None, "sharded receiver scaling benchmark (not ported)"),
+    "scaling-bench": ("apps.scaling_bench", "sharded receiver scaling benchmark"),
 }
 
 
@@ -40,12 +39,7 @@ def main(argv=None) -> int:
     if name not in APPS:
         print(f"unknown app: {name!r}\n\n{_usage()}", file=sys.stderr)
         return 2
-    target = APPS[name][0]
-    if target is None:
-        print(f"{name}: not ported to c_ofdm_tpu_torch yet; it comes with "
-              f"parallel/ (ROADMAP Queue 1 item 15)", file=sys.stderr)
-        return 2
-    mod = importlib.import_module(f"c_ofdm_tpu_torch.{target}")
+    mod = importlib.import_module(f"c_ofdm_tpu_torch.{APPS[name][0]}")
     return mod.main(rest) or 0
 
 

@@ -13,7 +13,8 @@ receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 and C = 8 under pallas); and the MAC-framed link loop (``Mac``, the channel
 simulator ``apply_channel``, the batch and streaming receivers); and the
 command-line apps (``tx``, ``rx``, ``loopback``, ``ber-sweep``,
-``ingest-bench``).  Phases, each printing its lines:
+``ingest-bench``, ``scaling-bench``); and ``parallel/``, the sharded
+receiver and the channel-sharded stream in worlds of ranks.  Phases, each printing its lines:
 
   1 device    the card, its name and power limit (nvidia-smi)
   2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
@@ -118,6 +119,23 @@ command-line apps (``tx``, ``rx``, ``loopback``, ``ber-sweep``,
               complex64 and --f64: ACCURACY: 1.0, exit 0, K1 once per call;
               ber-sweep --mods 4 --snrs 12:29:8 --frames 4: BER 0 at 28 dB,
               EVM falling with SNR; ingest-bench --buffers 50 --to-device
+ 24 parallel  parallel/ on the card: (a) a world of one (an NCCL group of
+              size 1 in this process): the sharded receiver at C = 8 x
+              240 640 on __graft_entry__.py's dryrun capture (CFO 1e-4,
+              30 dB, random gaps, amplitudes 40 x 0.6-1.0, a near-gate
+              spurious burst per channel): every frame once at start +
+              t2sin_size, bytes exact, CRC valid, equal to the CPU run, K3
+              twice and K1, K2, K4 never; time per call (CUDA events) and
+              device time; once more under pallas, K4 once; (b) 4 gloo
+              ranks all on cuda:0 (parallel/launch.py), mesh {channel: 2,
+              time: 2}, the halo staged through host memory: the dryrun
+              capture with a frame straddling the time boundary and one
+              ending at the capture end per channel, equal to the truth and
+              to process_buffer over the whole capture; (c) the
+              channel-sharded stream, 2 gloo ranks on cuda:0: phase 22's
+              C = 8 rings, S = 4, equal to StreamingReceiver(channels=8);
+              (d) scaling-bench --devices 1 --channels 8 --frames-per-block
+              40 in-process, then --devices 2 raising the mesh's ValueError
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -1839,6 +1857,333 @@ def run_apps(dev, card):
     return {"launches_k2": launches, "long": ls}
 
 
+# ---- 24: parallel/ (the sharded receiver, the channel-sharded stream)
+
+DRY_BLOCK = 40     # frame lengths per time block: the stock buffer
+DRY_FILL = 5 / 6   # frames per frame length (__graft_entry__.py: 5 in 6)
+RANKS_GLOO = (2, 2)
+
+
+def dryrun_captures(spec, mac, C, n_time, block_len, rng):
+    """``__graft_entry__.py:65-205``'s dryrun_multichip capture, rebuilt from
+    a numpy seed: per channel MAC frames (``Mac.write`` with seq 0, 1, ...,
+    ``transmit`` on the spec's device) at random gaps, amplitudes 40 x
+    U(0.6, 1.0), CFO 1e-4, AWGN at 30 dB (at amplitude 40), and one near-gate
+    spurious two-tone burst in each channel's widest gap.  One frame per
+    channel straddles each time boundary, and the last frame ends exactly
+    at the capture end.  Returns (captures [C, total] complex64 numpy, per
+    channel the planted (start, wire bytes) in order, per channel the
+    payloads)."""
+    from c_ofdm_tpu_torch.models import tx
+    cfg = spec.cfg
+    fl = cfg.frame_len
+    total = n_time * block_len
+    starts = []
+    for _ in range(C):
+        forced = [b * block_len - int(rng.integers(fl // 4, 3 * fl // 4))
+                  for b in range(1, n_time)]
+        los = [0] + [s + fl for s in forced]
+        his = forced + [total]
+        ch = []
+        for j, (lo, hi) in enumerate(zip(los, his)):
+            k = int(DRY_FILL * (hi - lo) / fl)
+            last = j == len(forced)
+            # the last segment's trailing gap is 0: its last frame ends at
+            # the capture end
+            gaps = rng.multinomial(hi - lo - k * fl,
+                                   np.ones(k + (not last)) / (k + (not last)))
+            pos = lo
+            for i in range(k):
+                pos += int(gaps[i])
+                ch.append(pos)
+                pos += fl
+            ch.extend(forced[j:j + 1])
+        starts.append(ch)
+    payloads = [rng.integers(0, 256, (len(s), mac.payload), dtype=np.uint8)
+                for s in starts]
+    wire = mac.write(torch.from_numpy(np.concatenate(payloads)).to(
+        spec.device), torch.from_numpy(np.concatenate(
+            [np.arange(len(s)) for s in starts])).to(spec.device))
+    frames = tx.transmit(spec, wire).cpu().numpy().astype(np.complex128)
+    wire = wire.cpu().numpy()
+    caps = np.zeros((C, total), np.complex128)
+    truth, i = [], 0
+    for c in range(C):
+        truth.append([])
+        for s in starts[c]:
+            caps[c, s:s + fl] = frames[i] * 40.0 * (0.6 + 0.4 * rng.random())
+            truth[c].append((s, wire[i]))
+            i += 1
+    caps *= np.exp(2j * np.pi * 1e-4 * np.arange(total))[None, :]
+    noise_std = np.sqrt(float((np.abs(frames) ** 2).mean()) * 40.0 ** 2
+                        * 10 ** (-30.0 / 10) / 2)
+    burst = frames[0, :cfg.t2sin_size]
+    sp_scale = np.sqrt(1.33 * 2 * noise_std ** 2
+                       / float((np.abs(burst) ** 2).mean()))
+    for c in range(C):
+        ends = [0] + [s + fl for s in starts[c]]
+        lo, hi = max(zip(ends, starts[c] + [total]), key=lambda g: g[1] - g[0])
+        s = min((lo + hi) // 2, total - cfg.t2sin_size)
+        caps[c, s:s + cfg.t2sin_size] += sp_scale * burst
+    caps += noise_std * (rng.standard_normal(caps.shape)
+                         + 1j * rng.standard_normal(caps.shape))
+    return caps.astype(np.complex64), truth, payloads
+
+
+def check_sharded(spec, mac, out, truth, payloads, block_len, tag):
+    """The gathered view [C, n_time, K] (numpy fields) against the planted
+    truth: every frame decoded exactly once at its planted start +
+    t2sin_size with exact bytes, read_soft giving its seq and payload with
+    the CRC valid, and nothing else (the spurious bursts).  Returns the
+    number of frames and of halo-straddling frames."""
+    cfg = spec.cfg
+    n_time = out["valid"].shape[1]
+    gpos = out["positions"] + (np.arange(n_time) * block_len)[None, :, None]
+    n_frames = n_straddle = 0
+    for c, want in enumerate(truth):
+        v = out["valid"][c]
+        got = sorted((int(p), bytes(b)) for p, b in
+                     zip(gpos[c][v], out["mac_bytes"][c][v]))
+        check(got == sorted((s + cfg.t2sin_size, bytes(w)) for s, w in want),
+              f"{tag}: channel {c} decoded {[p for p, _ in got]}, planted "
+              f"{[s + cfg.t2sin_size for s, _ in want]}")
+        fr = mac.read_soft(torch.from_numpy(out["diag"][c][v]))
+        seq = fr.seq.numpy()
+        check(bool(fr.valid.all()) and sorted(seq) == list(range(len(want)))
+              and all(np.array_equal(p, payloads[c][q]) for p, q in
+                      zip(fr.payload.numpy(), seq)),
+              f"{tag}: channel {c}: read_soft seq {sorted(seq)}, CRC valid "
+              f"{fr.valid.tolist()}")
+        n_frames += len(want)
+        n_straddle += sum(s % block_len > block_len - cfg.frame_len
+                          for s, _ in want)
+    return n_frames, n_straddle
+
+
+def _np_out(out):
+    return {k: v.cpu().numpy() for k, v in out._asdict().items()}
+
+
+def _stream_out(d):
+    from c_ofdm_tpu_torch.models.streaming import StreamOut
+    return StreamOut(**{k: torch.from_numpy(v) for k, v in d.items()})
+
+
+def run_parallel(dev, card):
+    """Phase 24: parallel/ on the card.  (a) a world of one in this process
+    (NCCL group of size 1): the sharded receiver at C = 8 x 240 640, every
+    dryrun frame exact, equal to the CPU run, K3 twice; timing; pallas.
+    (b) 4 gloo ranks on cuda:0, mesh {channel: 2, time: 2}: the halo through
+    host memory, equal to the truth and to process_buffer over the whole
+    capture.  (c) the channel-sharded stream in a gloo world of 2 on cuda:0
+    against StreamingReceiver(channels=8).  (d) the scaling-bench app."""
+    import socket
+    import torch.distributed as dist
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.apps import scaling_bench
+    from c_ofdm_tpu_torch.mac.mac import Mac
+    from c_ofdm_tpu_torch.models import streaming
+    from c_ofdm_tpu_torch.ops import dft, extract
+    from c_ofdm_tpu_torch.parallel import ingest, launch, mesh, sharded
+    t0 = time.perf_counter()
+    cfg = ModemConfig()
+    fl = cfg.frame_len
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="matmul")
+    mac = Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
+    rng = np.random.default_rng(SEED + 24)
+    block_len = DRY_BLOCK * fl
+    max_pb = DRY_BLOCK + 1
+    gathers = (extract.extract_windows, extract.extract_windows_single,
+               extract.extract_windows_multi)
+    k3_launches = 0
+
+    # ---- (a) world of one: the CPU reference first, without a group
+    C = STATE_C
+    caps, truth, payloads = dryrun_captures(spec, mac, C, 1, block_len, rng)
+    cpu_spec = make_frame_spec(cfg, torch.complex64, device="cpu",
+                               fft_backend="matmul")
+    cpu_mesh = mesh.make_modem_mesh(1, 1, device="cpu")
+    cpu_out = sharded.gather_outputs(cpu_mesh, sharded.make_sharded_receiver(
+        cpu_spec, cpu_mesh, max_pb)(ingest.make_global_capture(cpu_mesh,
+                                                               caps)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        m = mesh.make_modem_mesh(1, 1, device=dev)
+        check(m.group is not None and not m.staged
+              and dist.get_backend(m.group) == "nccl",
+              f"parallel: the world of one is not an NCCL group: {m}")
+        recv = sharded.make_sharded_receiver(spec, m, max_pb)
+        block = ingest.make_global_capture(m, caps)
+        torch.cuda.synchronize()
+        # ---- the main path, counts from 0
+        for f in (*gathers, dft.dft):
+            f.launches = 0
+        out = sharded.gather_outputs(m, recv(block))
+        torch.cuda.synchronize()
+        counts = [f.launches for f in (*gathers, dft.dft)]
+        check(counts == [0, 0, 2, 0], f"parallel (a): (K1, K2, K3, K4) "
+              f"launches {counts}, want (0, 0, 2, 0)")
+        k3_launches += counts[2]
+        n_frames, _ = check_sharded(spec, mac, _np_out(out), truth, payloads,
+                                    block_len, "parallel (a)")
+        same_outputs([out], [cpu_out], "parallel (a) card against CPU",
+                     atol=1e-4)
+        ms = cuda_ms(lambda i: recv(block), 20)
+        dev_ms, _ = device_ms(lambda i: recv(block), 10)
+        say("parallel", f"(a) world of one, NCCL group of 1 on {dev}: "
+            f"sharded receiver {{channel:1, time:1}}, C={C} x {block_len} "
+            f"(dryrun capture: CFO 1e-4, 30 dB, random gaps, amplitudes "
+            f"40 x 0.6-1.0, a near-gate spurious burst per channel), "
+            f"max_frames_per_block {max_pb}: {n_frames} planted frames "
+            f"decoded exactly once at start + t2sin_size, bytes exact, CRC "
+            f"valid, no spurious decode; every field equal to the CPU run; "
+            f"(K1, K2, K3, K4) launches {counts}")
+        say("parallel", f"(a) on {card}: {ms:.4f} ms per call (CUDA events, "
+            f"20 calls), device {dev_ms:.4f} ms (torch.profiler), "
+            f"{C * block_len / (ms * 1e-3):.6g} samples/s, idle "
+            f"{1 - dev_ms / ms:.1%}")
+        # pallas: K4 once per call (demod_sig's one bins_transform of the
+        # C x 41 x 9 symbols), K3 twice
+        recv_p = sharded.make_sharded_receiver(
+            make_frame_spec(cfg, torch.complex64, device=dev,
+                            fft_backend="pallas"), m, max_pb)
+        before = [dft.dft.radix_launches, dft.dft.dense_launches,
+                  extract.extract_windows_multi.launches]
+        out_p = _np_out(sharded.gather_outputs(m, recv_p(block)))
+        torch.cuda.synchronize()
+        got = [dft.dft.radix_launches - before[0],
+               dft.dft.dense_launches - before[1],
+               extract.extract_windows_multi.launches - before[2]]
+        check(got == [1, 0, 2], f"parallel (a) pallas: (radix K4, dense K4, "
+              f"K3) launches {got}, want (1, 0, 2)")
+        check_sharded(spec, mac, out_p, truth, payloads, block_len,
+                      "parallel (a) pallas")
+        say("parallel", f"(a) under fft_backend='pallas': the same "
+            f"{n_frames} frames exact; (radix K4, dense K4, K3) launches "
+            f"{got}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) 4 gloo ranks on cuda:0, {channel: 2, time: 2}, and (c) the
+    # channel-sharded stream's 2 gloo ranks on cuda:0, both worlds at once
+    # (spawning a rank dominates their time)
+    from concurrent.futures import ThreadPoolExecutor
+    nc, nt = RANKS_GLOO
+    C = 2 * nc
+    caps, truth, payloads = dryrun_captures(spec, mac, C, nt, block_len, rng)
+    blocks, s_truth, _ = streaming_buffers(spec, STATE_C, SEED + 30 + STATE_C,
+                                           mac=mac)
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        world_b = pool.submit(
+            launch.run_world, nc * nt,
+            "c_ofdm_tpu_torch.parallel.launch:receive_rank", backend="gloo",
+            device=str(dev),
+            args=(cfg, torch.complex64, "matmul", caps, nc, nt, max_pb),
+            timeout=300)
+        world_c = pool.submit(
+            launch.run_world, 2,
+            "c_ofdm_tpu_torch.parallel.launch:stream_rank", backend="gloo",
+            device=str(dev), args=(cfg, torch.complex64, "matmul",
+                                   blocks.cpu().numpy(), 2, 1, 0),
+            timeout=300)
+        ranks, ranks_c = world_b.result(), world_c.result()
+    secs = time.perf_counter() - t1
+    for r, res in enumerate(ranks):
+        check(res["coords"] == divmod(r, nt) and res["launches"] == {
+            "K1": 0, "K2": 0, "K3": 2, "K4": 0},
+            f"parallel (b): rank {r} at {res['coords']}, launches "
+            f"{res['launches']}")
+        for k, v in res["out"].items():
+            check(np.array_equal(v, ranks[0]["out"][k], equal_nan=True),
+                  f"parallel (b): rank {r}'s gathered {k} differs")
+        k3_launches += res["launches"]["K3"]
+    out = ranks[0]["out"]
+    n_frames, n_straddle = check_sharded(spec, mac, out, truth, payloads,
+                                         block_len, "parallel (b)")
+    check(n_straddle >= C * (nt - 1), f"parallel (b): {n_straddle} "
+          f"halo-straddling frames decoded, want >= {C * (nt - 1)}")
+    # the dryrun's single-device reference: the whole capture as one buffer
+    _, ref = streaming.process_buffer(
+        spec, streaming.init_state(spec, channels=C),
+        torch.from_numpy(caps).to(dev),
+        max(len(t) for t in truth) + 2)
+    ref = _np_out(ref)
+    for c in range(C):
+        v = ref["valid"][c]
+        single = sorted((int(p) - fl, bytes(b)) for p, b in
+                        zip(ref["positions"][c][v], ref["mac_bytes"][c][v]))
+        gpos = out["positions"][c] + (np.arange(nt) * block_len)[:, None]
+        vv = out["valid"][c]
+        got = sorted((int(p), bytes(b)) for p, b in
+                     zip(gpos[vv], out["mac_bytes"][c][vv]))
+        check(single == got, f"parallel (b): channel {c}: the sharded "
+              f"decode differs from process_buffer over the whole capture")
+    say("parallel", f"(b) {nc * nt} gloo ranks on {dev} (every rank on the "
+        f"one card, halo staged through host memory), mesh {{channel:{nc}, "
+        f"time:{nt}}}, C={C} x {nt * block_len}: {n_frames} planted frames "
+        f"exact (incl. {n_straddle} halo-straddling, and each channel's "
+        f"last frame ending at the capture end), every rank's gathered view "
+        f"equal, equal to process_buffer over the whole capture on the "
+        f"card; K3 launches per rank 2")
+
+    # ---- (c) the channel-sharded stream against the unsharded receiver
+    C = STATE_C
+    rxr = streaming.StreamingReceiver(spec, channels=C)
+    want = [_np_out(o) for o in feed_all(rxr, blocks)]
+    state = _np_out(rxr.state)
+    for r, res in enumerate(ranks_c):
+        check(res["launches"] == {"K1": 0, "K2": 0, "K3": 2 * S, "K4": 0},
+              f"parallel (c): rank {r} launches {res['launches']}")
+        k3_launches += res["launches"]["K3"]
+        same_outputs([_stream_out(o) for o in res["outs"]],
+                     [_stream_out(o) for o in want],
+                     f"parallel (c) rank {r}", atol=1e-4)
+        for k, v in state.items():
+            check(np.array_equal(res["state"][k], v),
+                  f"parallel (c): rank {r}'s final state {k} differs")
+    n_frames = check_truth(spec, [_stream_out(o) for o in ranks_c[0]["outs"]],
+                           s_truth, C)
+    say("parallel", f"(c) channel-sharded stream, 2 gloo ranks on {dev}, "
+        f"mesh {{channel:2, time:1}}, C={C} MAC-framed rings (phase 22), "
+        f"S={S} buffers from make_global_stream_state: {n_frames} planted "
+        f"frames exact; every buffer's gathered output and the final state "
+        f"equal to StreamingReceiver(channels={C}) on the card; K3 launches "
+        f"per rank {2 * S}; the worlds of (b) and (c) spawned and run "
+        f"together in {secs:.1f} s")
+
+    # ---- (d) the app
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text = _app(scaling_bench, ["--devices", 1, "--channels", C,
+                                        "--frames-per-block", DRY_BLOCK])
+    line = json.loads(text.strip().splitlines()[-1])
+    check(rc == 0 and line["devices"] == [1]
+          and f"({C} frames)" in err.getvalue(),
+          f"parallel (d): scaling-bench exited {rc}: {text} {err.getvalue()}")
+    say("parallel", f"(d) scaling-bench --devices 1 --channels {C} "
+        f"--frames-per-block {DRY_BLOCK} (an NCCL world of 1 on {card}; a "
+        f"single card measures no scaling): {json.dumps(line)}; stderr: "
+        f"{' | '.join(err.getvalue().strip().splitlines())}")
+    if torch.cuda.device_count() == 1:
+        try:
+            _app(scaling_bench, ["--devices", 2, "--channels", C])
+        except ValueError as e:
+            check("need 2 devices, have 1" in str(e),
+                  f"parallel (d): --devices 2 raised {e!r}")
+            say("parallel", f"(d) --devices 2 on one card: ValueError({e})")
+        else:
+            check(False, "parallel (d): --devices 2 on one card did not "
+                  "raise")
+    say("parallel", f"phase took {time.perf_counter() - t0:.1f} s")
+    return k3_launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -1950,7 +2295,10 @@ def main():
 
     # ---- 23: the CLI apps
     run_apps(dev, card)
-    say("apps", f"all phases {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 24: parallel/
+    k3_sharded = run_parallel(dev, card)
+    say("parallel", f"all phases {time.perf_counter() - t_start:.1f} s")
 
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"
     print(json.dumps({"kernels": [{
@@ -1982,7 +2330,7 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "c_ofdm_tpu/ops/pallas_extract.py:183",
-        "launches": stream["launches"]["multi"],
+        "launches": stream["launches"]["multi"] + k3_sharded,
         "max_abs_err": ring_err["multi"],
         "ms": stream["kernel_ms"]["multi"],
         "plain_ms": stream["plain_ms"]["multi"],

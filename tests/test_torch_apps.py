@@ -1,6 +1,7 @@
 """The port's other apps and its dispatcher on the CPU: ``loopback`` against
 the JAX app on one capture, ``ber-sweep``, ``dashboard``, ``plots``,
-``ingest-bench`` and ``python -m c_ofdm_tpu_torch``.
+``ingest-bench``, ``scaling-bench`` (in gloo worlds of CPU ranks) and
+``python -m c_ofdm_tpu_torch``.
 
 The JAX apps run once per module, in one subprocess: ``loopback --dump D1
 --f64`` writes a simulated capture (it stands in for the absent golden
@@ -223,17 +224,29 @@ def test_dispatcher(capsys):
     assert cli.main([]) == 0
     assert "usage: python -m c_ofdm_tpu_torch" in capsys.readouterr().out
     assert cli.main(["nosuch"]) == 2
-    assert cli.main(["scaling-bench"]) == 2
-    assert "item 15" in capsys.readouterr().err
     assert list(cli.APPS) == ["loopback", "tx", "rx", "ingest-bench",
                               "ber-sweep", "plots", "dashboard",
                               "scaling-bench"]
     for name, (target, _) in cli.APPS.items():
-        if name == "scaling-bench":
-            assert target is None
-            continue
         mod = importlib.import_module(f"c_ofdm_tpu_torch.{target}")
         assert callable(mod.main)
+
+
+def test_scaling_bench_prints_the_jax_apps_line():
+    """scaling-bench in gloo worlds of 1 and 2 CPU ranks: its last line has
+    the JAX app's keys (c_ofdm_tpu/apps/scaling_bench.py:99-104) and the
+    devices the JAX app reports for --devices 2."""
+    rc, out = _main_stdout(cli, ["scaling-bench", "--device", "cpu",
+                                 "--devices", "2", "--reps", "1"])
+    line = json.loads(out.strip().splitlines()[-1])
+    assert rc == 0
+    assert list(line) == ["metric", "samples_per_s", "efficiency_vs_linear",
+                          "devices"]
+    assert line["metric"] == "sharded_rx_scaling"
+    assert line["devices"] == [1, 2]
+    assert list(line["samples_per_s"]) == ["1", "2"]
+    assert all(v > 0 for v in line["samples_per_s"].values())
+    assert line["efficiency_vs_linear"]["1"] == 1.0
 
 
 def test_dispatcher_runs_an_app(jax_runs):
@@ -249,6 +262,7 @@ def test_dispatcher_runs_an_app(jax_runs):
     ("loopback", []),
     ("ber-sweep", ["--frames", "1"]),
     ("ingest-bench", ["--buffers", "1", "--to-device"]),
+    ("scaling-bench", ["--devices", "1"]),
 ])
 def test_cuda_without_a_card_raises(app, argv):
     """Every app that computes defaults to the card and raises, naming the

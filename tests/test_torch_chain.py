@@ -208,10 +208,10 @@ def test_port_never_imports_jax():
     """The port's package imports torch and numpy only: no source file
     imports jax, and building + running the flagship step and a streaming
     buffer, a pallas-backend step, the MAC codec and the channel simulator,
-    importing every ``io.*`` and ``apps.*`` module, and running
-    ``python -m c_ofdm_tpu_torch tx ... --device cpu`` and ``rx`` on its
-    stream in a fresh interpreter leaves jax and the JAX package out of
-    sys.modules."""
+    importing every ``io.*``, ``apps.*`` and ``parallel.*`` module, and
+    running ``python -m c_ofdm_tpu_torch tx ... --device cpu`` and ``rx``
+    on its stream in a fresh interpreter leaves jax and the JAX package out
+    of sys.modules."""
     pattern = re.compile(r"^\s*(import jax|from jax|import c_ofdm_tpu\b|"
                          r"from c_ofdm_tpu\b|from c_ofdm_tpu\.)", re.M)
     sources = sorted((REPO / "c_ofdm_tpu_torch").rglob("*.py"))
@@ -250,7 +250,9 @@ def test_port_never_imports_jax():
         "assert bool(mac.read_bytes(wire).valid.all())\n"
         "import importlib, pkgutil, runpy, tempfile\n"
         "import c_ofdm_tpu_torch.apps, c_ofdm_tpu_torch.io\n"
-        "for pkg in (c_ofdm_tpu_torch.apps, c_ofdm_tpu_torch.io):\n"
+        "import c_ofdm_tpu_torch.parallel\n"
+        "for pkg in (c_ofdm_tpu_torch.apps, c_ofdm_tpu_torch.io,"
+        " c_ofdm_tpu_torch.parallel):\n"
         "    for m in pkgutil.iter_modules(pkg.__path__):\n"
         "        importlib.import_module(pkg.__name__ + '.' + m.name)\n"
         "d = tempfile.mkdtemp()\n"

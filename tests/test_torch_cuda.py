@@ -623,3 +623,48 @@ def test_loopback_app_on_card_launches_k1_once(dev, tmp_path, f64):
     torch.cuda.synchronize()
     assert rc == 0 and "ACCURACY: 1.0" in out, out
     assert extract.extract_windows.launches == before + 1
+
+
+def test_world_of_one_sharded_receiver_on_card_equals_cpu(dev):
+    """The sharded receiver in a world of one (no process group) on the
+    card: K3 twice per call (regions, then frames), K1 and K2 never, and
+    every field equal to the CPU run; frames straddling nothing, at both
+    ends of the capture, decode."""
+    from c_ofdm_tpu_torch.models import tx
+    from c_ofdm_tpu_torch.parallel import ingest, mesh, sharded
+    tx_spec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    rng = np.random.default_rng(8)
+    payload = rng.integers(0, 256, (4, CFG.frame_bytes), dtype=np.uint8)
+    frames = tx.transmit(tx_spec, torch.from_numpy(payload)).numpy()
+    n = 8 * CFG.frame_len
+    caps = 0.05 * (rng.standard_normal((2, n))
+                   + 1j * rng.standard_normal((2, n)))
+    for i, (c, s) in enumerate([(0, 0), (0, 20_000), (1, 333),
+                                (1, n - CFG.frame_len)]):
+        caps[c, s:s + CFG.frame_len] += 60.0 * frames[i]
+    caps = caps.astype(np.complex64)
+    outs = {}
+    for where in ("cpu", dev):
+        spec = make_frame_spec(CFG, torch.complex64, device=where)
+        m = mesh.make_modem_mesh(1, 1, device=where)
+        recv = sharded.make_sharded_receiver(spec, m, 4)
+        block = ingest.make_global_capture(m, caps)
+        counts = [f.launches for f in (extract.extract_windows,
+                                       extract.extract_windows_single,
+                                       extract.extract_windows_multi)]
+        out = sharded.gather_outputs(m, recv(block))
+        torch.cuda.synchronize()
+        if where == dev:
+            assert [f.launches - c for f, c in zip(
+                (extract.extract_windows, extract.extract_windows_single,
+                 extract.extract_windows_multi), counts)] == [0, 0, 2]
+        outs[str(where)] = out
+    cpu, card = outs["cpu"], outs[str(dev)]
+    for name in ("positions", "valid", "num_found"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name)), name
+    valid = cpu.valid
+    assert cpu.num_found.tolist() == [[2], [2]]
+    assert torch.equal(card.mac_bytes.cpu()[valid], cpu.mac_bytes[valid])
+    np.testing.assert_array_equal(cpu.mac_bytes[valid].numpy(), payload)
+    torch.testing.assert_close(card.diag.cpu()[valid], cpu.diag[valid],
+                               rtol=0, atol=1e-4)
