@@ -88,7 +88,7 @@ def main(argv=None):
             cap = apply_channel(
                 params, frames,
                 generator=torch.Generator(dev).manual_seed(int(snr * 10)))
-            res = rxm.demod_frames(spec, cap)
+            res = rxm.demod_frames_jit(spec, cap)
             if args.soft:
                 hard = mac.read_bytes(res.mac_bytes)
                 llrs = modulation.soft_llrs(res.constellation, mod)

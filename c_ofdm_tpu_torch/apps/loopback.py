@@ -79,7 +79,7 @@ def main(argv=None):
             params, frame,
             generator=torch.Generator(dev).manual_seed(0))
 
-    res, s = rxm.receive_capture(spec, capture)
+    res, s = rxm.receive_capture_jit(spec, capture)
     if not bool(s.found):
         print("NO FRAME DETECTED", file=sys.stderr)
         return 1

@@ -143,6 +143,7 @@ def main(argv=None):
     from c_ofdm_tpu_torch.io.trace import StageTrace
     from c_ofdm_tpu_torch.mac.mac import Mac
     from c_ofdm_tpu_torch.models import streaming
+    from c_ofdm_tpu_torch.utils import graphs
 
     cfg = load_config(args.config) if args.config else ModemConfig()
     spec = make_frame_spec(cfg, torch.complex64, device=dev,
@@ -203,17 +204,27 @@ def main(argv=None):
     t_feed = 0.0       # host staging (pinned slot fill + copy enqueue)
     t_drain = 0.0      # blocked on device results
 
+    # The JAX app's jitted steps (decode_out, tally, chunk_step) are
+    # captured calls on the card (utils/graphs.py: one CUDA-graph replay
+    # each, captured on first use) and eager on the CPU.
+    decode_graph = graphs.CapturedCall("rx.decode_out")
+    tally_graph = graphs.CapturedCall("rx.tally")
+    chunk_graph = graphs.CapturedCall("rx.chunk_step")
+
     # MAC deframing happens ON THE DEVICE and only the deframed payload bytes
     # and the metadata come back: the soft metrics are 8x the payload size,
     # and every readback is a wait on the card.  Integer metadata is int64
     # (the MAC seq is int64 holding the uint32 value: no bitcast needed).
-    def decode_out(o):
-        frs = mac.read_soft(o.diag)
-        meta = torch.stack([o.valid.to(torch.int64),
+    def _decode_out(diag, valid, positions, cfo):
+        frs = mac.read_soft(diag)
+        meta = torch.stack([valid.to(torch.int64),
                             frs.valid.to(torch.int64),
                             frs.seq,
-                            o.positions.to(torch.int64)], dim=-1)
-        return frs.payload, meta, o.cfo.to(torch.float32)
+                            positions.to(torch.int64)], dim=-1)
+        return frs.payload, meta, cfo.to(torch.float32)
+
+    def decode_out(o):
+        return decode_graph(_decode_out, (o.diag, o.valid, o.positions, o.cfo))
 
     def start_readback(i, out):
         """Enqueue buffer i's decode and its copy to pinned host memory;
@@ -253,19 +264,25 @@ def main(argv=None):
         trace.value("FR_IN_BUF", int(valid.sum()))
 
     # --drain metadata: everything stays on the device; per buffer the
-    # StreamOut folds into four int64 scalars (frames, CRC failures, max
-    # seq, payload checksum mod 2^32), read back once at exit.
-    def tally(acc, o):
-        frs = mac.read_soft(o.diag)
-        v = o.valid
-        bad = v & ~frs.valid
-        ok = v & frs.valid
+    # StreamOut folds into four int64 tallies (frames, CRC failures, max
+    # seq, payload checksum mod 2^32) updated in place in ``acc`` [4], read
+    # back once at exit.
+    acc = torch.zeros(4, dtype=torch.int64, device=dev)
+
+    def _tally(diag, valid):
+        frs = mac.read_soft(diag)
+        bad = valid & ~frs.valid
+        ok = valid & frs.valid
         psum = torch.where(ok[..., None], frs.payload, 0).to(
             torch.int64).sum()
-        return (acc[0] + v.sum(),
-                acc[1] + bad.sum(),
-                torch.maximum(acc[2], torch.where(ok, frs.seq, 0).max()),
-                (acc[3] + psum) & 0xFFFFFFFF)
+        acc.copy_(torch.stack([
+            acc[0] + valid.sum(),
+            acc[1] + bad.sum(),
+            torch.maximum(acc[2], torch.where(ok, frs.seq, 0).max()),
+            (acc[3] + psum) & 0xFFFFFFFF]))
+
+    def tally(o):
+        tally_graph(_tally, (o.diag, o.valid), restore=(acc,))
 
     stage = BlockStager(dev)
 
@@ -280,12 +297,8 @@ def main(argv=None):
             t_feed += time.perf_counter() - t0
             yield dev_block
 
-    def zero_acc():
-        return tuple(torch.zeros((), dtype=torch.int64, device=dev)
-                     for _ in range(4))
-
-    def read_acc(acc):
-        return [int(v) for v in torch.stack(acc).cpu()]   # 32 bytes
+    def read_acc():
+        return [int(v) for v in acc.cpu()]   # 32 bytes
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -298,22 +311,30 @@ def main(argv=None):
 
     with prof:
         if args.drain == "metadata" and args.chunk > 1:
-            acc = zero_acc()
             bspec = rxr.bound_spec()
+            # the stream state threaded through the chunk, updated in place
             state = streaming.init_state(bspec)
             pend = []
             first = True
 
+            def _chunk_step(*blocks):
+                """The JAX app's chunk_step (a lax.scan over the chunk):
+                process_buffer + tally per buffer, the state carried in
+                ``state``'s tensors."""
+                for blk in blocks:
+                    new, out = streaming.process_buffer(
+                        bspec, state, blk, rxr.max_frames, args.sync_mode)
+                    for t, v in zip(state, new):
+                        t.copy_(v)
+                    _tally(out.diag, out.valid)
+
             def flush():
                 """Run one group of ``chunk`` buffers back to back (a short
                 tail group zero-padded, as the JAX app's scan runs it)."""
-                nonlocal state, acc, t_steady, first, n_bufs
+                nonlocal t_steady, first, n_bufs
                 blocks = pend + [torch.zeros_like(pend[0])] * (
                     args.chunk - len(pend))
-                for blk in blocks:
-                    state, out = streaming.process_buffer(
-                        bspec, state, blk, rxr.max_frames, args.sync_mode)
-                    acc = tally(acc, out)
+                chunk_graph(_chunk_step, blocks, restore=(*state, acc))
                 n_bufs += len(pend)
                 pend.clear()
                 if first:
@@ -327,19 +348,18 @@ def main(argv=None):
                     flush()
             if pend:
                 flush()
-            n_frames, n_crc_bad, max_seq, payload_sum = read_acc(acc)
+            n_frames, n_crc_bad, max_seq, payload_sum = read_acc()
         elif args.drain == "metadata":
-            acc = zero_acc()
             for i, dev_block in enumerate(staged_blocks()):
                 trace.iter_start(ITER=i)
                 out = rxr.feed(dev_block)   # asynchronous launches
-                acc = tally(acc, out)       # stays on the device
+                tally(out)                  # stays on the device
                 trace.point("RX_STEP")
                 n_bufs += 1
                 if i == 0:
                     int(acc[0])             # buffer 0 carries first-call costs
                     t_steady = time.perf_counter()
-            n_frames, n_crc_bad, max_seq, payload_sum = read_acc(acc)
+            n_frames, n_crc_bad, max_seq, payload_sum = read_acc()
         else:
             pending = None  # buffer whose results are still on the way
             for i, dev_block in enumerate(staged_blocks()):

@@ -377,21 +377,48 @@ int launch_fft(const float2* x, int64_t ldx, const float2* tw, float2* y,
   using S = Radix<LOG2N>;
   const int64_t blocks = (m + S::kRows - 1) / S::kRows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (S::kSmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fft_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        S::kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   fft_kernel<LOG2N><<<static_cast<unsigned>(blocks), S::kThreads, S::kSmem,
                       stream>>>(x, ldx, tw, y, m, s, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Lets fft_kernel<LOG2N> take its dynamic shared memory where that is
+// more than the 48 KB a launch gets by default (n = 8192: 64 KB).  A
+// function attribute, set once per process, device and size by the wrapper
+// (ops/dft.py::_prepare) before the first launch, outside any CUDA-graph
+// capture, so that a launch is only the launch and cudaGetLastError.
+template <int LOG2N>
+int prepare_fft() {
+  using S = Radix<LOG2N>;
+  if (S::kSmem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      fft_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem));
+}
+
 }  // namespace
 
+// The set-up c_ofdm_fft's size n needs on the current device (see
+// prepare_fft); n a power of two from 16 to 8192.
+extern "C" int c_ofdm_fft_prepare(long long n) {
+  switch (n) {
+    case 16: return prepare_fft<4>();
+    case 32: return prepare_fft<5>();
+    case 64: return prepare_fft<6>();
+    case 128: return prepare_fft<7>();
+    case 256: return prepare_fft<8>();
+    case 512: return prepare_fft<9>();
+    case 1024: return prepare_fft<10>();
+    case 2048: return prepare_fft<11>();
+    case 4096: return prepare_fft<12>();
+    case 8192: return prepare_fft<13>();
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // x [m rows, row stride ldx] complex64, tw [n] complex64 (exp(sign·2πi·k/n)),
-// y [m, n] complex64 (contiguous); n a power of two from 16 to 8192.
+// y [m, n] complex64 (contiguous); n a power of two from 16 to 8192, after
+// c_ofdm_fft_prepare(n) on this device.
 extern "C" int c_ofdm_fft(const void* x, long long ldx, const void* tw,
                           void* y, long long m, long long n, int sign,
                           float scale, void* stream) {

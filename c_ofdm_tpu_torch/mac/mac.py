@@ -31,13 +31,13 @@ count does not depend on n.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import bits as bitops
+from ..utils import graphs
 
 MAGIC = 0x7E57
 HEADER_BYTES = 8
@@ -70,7 +70,7 @@ def _crc16_affine_np(n: int):
     return m, c
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.device_cache(maxsize=32)
 def _crc16_affine(n: int, device: torch.device):
     """``_crc16_affine_np(n)`` as device tensors: (M float32 [8n, 16],
     c int64 [], bit weights int64 [16])."""

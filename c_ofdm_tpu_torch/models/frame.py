@@ -102,7 +102,11 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
     ``fft.dft_basis``).  The partial-DFT bases are built only for the
     backends that read them: ``rx_basis``, ``tx_basis`` and
     ``tx_pilot_time`` for the matmul backends, ``cfo_basis`` for all but
-    ``xla`` and ``ct*``."""
+    ``xla`` and ``ct*``; the bin gathers (``pilot_idx``, ``data_idx``,
+    ``tx_bin_src``) for the other backends on a layout that is not the
+    canonical one.  No step makes a constant from host data while it runs:
+    a CUDA-graph capture refuses the host-to-device copy (see
+    ``utils/graphs.py``)."""
     rdt = real_dtype(dtype)
 
     def pair(w):
@@ -130,6 +134,9 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
                                              cfg.pr_sin_len)),
         "mf_fft_os": cplx(sync._mf_spectrum_np(arrays["matched_filter"],
                                                sync.OVERLAP_SAVE_LEN)),
+        sync.mf_spectrum_key(8192): cplx(sync._mf_spectrum_np(
+            arrays["matched_filter"], 8192)),
+        "t2_mask": real(arrays["t2_mask"]),
         "cfo_lo": torch.tensor([lo for lo, _ in segs], dtype=torch.int64,
                                device=device),
         "t2_burst": cplx(arrays["t2_burst"]),
@@ -142,6 +149,15 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
     if cfo.uses_partial_spectrum(fft_backend):
         tensors["cfo_basis"] = cfo.cfo_basis(cfg.preamble_len, segs, device,
                                              rdt)
+    if fft_backend not in fft.MATMUL_BACKENDS and not \
+            chanest.layout_is_structured(cfg, arrays["pilot_bins"],
+                                         arrays["data_bins"]):
+        def index(a):
+            return torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device)
+        tensors["pilot_idx"] = index(arrays["pilot_bins"])
+        tensors["data_idx"] = index(arrays["data_bins"])
+        tensors["tx_bin_src"] = index(chanest.tx_bin_maps_np(
+            cfg, arrays["pilot_bins"], arrays["data_bins"]))
     if fft_backend in fft.MATMUL_BACKENDS:
         tensors["rx_basis"] = chanest.rx_basis(
             cfg, arrays["pilot_bins"], arrays["data_bins"], device, rdt)

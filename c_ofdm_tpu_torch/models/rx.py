@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cfo, chanest, extract, modulation, sync
+from ..utils import graphs
 from .frame import FrameSpec
 
 
@@ -68,8 +69,8 @@ def demod_frame(spec: FrameSpec, frame_sig: torch.Tensor,
 
 def demod_frames(spec: FrameSpec, frames: torch.Tensor,
                  estimator: str = "lq") -> RxResult:
-    """``demod_frame`` under the name of the JAX package's
-    ``demod_frames_jit`` (the entry ``apps/ber_sweep.py`` calls)."""
+    """``demod_frame`` over a batch of frames [..., frame_len]: the eager
+    body of ``demod_frames_jit`` (the entry ``apps/ber_sweep.py`` calls)."""
     return demod_frame(spec, frames, estimator)
 
 
@@ -185,3 +186,15 @@ def receive_capture(spec: FrameSpec, capture: torch.Tensor,
     """Full single-frame RX on one capture [n]: ``receive_batch`` at B = 1."""
     res, s = receive_batch(spec, capture[None], estimator)
     return (RxResult(*(f[0] for f in res)), SyncResult(*(f[0] for f in s)))
+
+
+# The JAX package's compiled entry points (``c_ofdm_tpu/models/rx.py``):
+# on CUDA tensors each call is one CUDA-graph replay, captured on the first
+# call for each (spec, estimator, input shape and dtype, device); on CPU
+# tensors the eager function runs (``utils/graphs.py::jit``).  JAX's
+# ``receive_batch_jit`` vmaps ``receive_capture`` over the batch; the
+# port's is the batch-native ``receive_batch`` (the same results, held
+# against each other in tests/test_torch_jit.py).
+receive_capture_jit = graphs.jit(receive_capture, static_argnums=(0, 2))
+receive_batch_jit = graphs.jit(receive_batch, static_argnums=(0, 2))
+demod_frames_jit = graphs.jit(demod_frames, static_argnums=(0, 2))

@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ..ops import extract, sync
+from ..utils import graphs
 from .frame import FrameSpec
 from . import rx as rxm
 from . import tx as txm
@@ -348,7 +349,18 @@ class StreamingReceiver(nn.Module):
     """Feed ingest buffers, collect frames: the role of the rx.cpp main
     loop.  The spec's device constants and the stream state are buffers, so
     ``.to(device)`` moves both.  ``channels`` C > 0 takes blocks with a
-    leading [C] axis (C independent streams)."""
+    leading [C] axis (C independent streams).
+
+    On the card ``feed`` is one CUDA-graph replay per buffer, as the JAX
+    package's ``process_buffer`` is one compiled program: a graph is
+    captured on the first buffer of each block shape and dtype (complex,
+    interleaved float and int16 blocks are each their own key).  The state
+    stays in this module's buffers: the captured step ends by writing the
+    new state into them, so one replay feeds the next.  Setting ``state``
+    copies into those buffers when every field keeps its shape, dtype and
+    device, and otherwise rebinds them and drops the graphs, as ``.to()``
+    does.  On CPU tensors ``feed`` runs the same step eagerly.
+    """
 
     def __init__(self, spec: FrameSpec, max_frames: int = 0,
                  sync_mode: str = "gated", channels: int = 0):
@@ -361,25 +373,56 @@ class StreamingReceiver(nn.Module):
         for name, t in zip(StreamState._fields,
                            init_state(spec, channels=channels)):
             self.register_buffer(name, t, persistent=False)
+        self.graphs = graphs.CapturedCall("StreamingReceiver.feed")
+
+    def _apply(self, fn, recurse=True):
+        self.graphs.clear()
+        return super()._apply(fn, recurse)
+
+    def _state_buffers(self) -> StreamState:
+        return StreamState(*(getattr(self, f) for f in StreamState._fields))
 
     @property
     def state(self) -> StreamState:
-        return StreamState(*(getattr(self, f) for f in StreamState._fields))
+        """A copy of the stream state (later buffers do not change it)."""
+        return StreamState(*(t.clone() for t in self._state_buffers()))
 
     @state.setter
     def state(self, state: StreamState) -> None:
+        cur = self._state_buffers()
+        if all(t.shape == c.shape and t.dtype == c.dtype
+               and t.device == c.device for t, c in zip(state, cur)):
+            with torch.no_grad():
+                for c, t in zip(cur, state):
+                    c.copy_(t)
+            return
         for name, t in zip(StreamState._fields, state):
             setattr(self, name, t)
+        self.graphs.clear()
 
     def bound_spec(self) -> FrameSpec:
         """The spec reading its constants from this module's buffers."""
         return self.spec.with_tensors(dict(self.named_buffers()))
 
+    def _step(self, block: torch.Tensor) -> StreamOut:
+        """``process_buffer`` on the state buffers, the new state written
+        back into them (the captured step)."""
+        cur = self._state_buffers()
+        new, out = process_buffer(self.bound_spec(), cur, block,
+                                  self.max_frames, self.sync_mode)
+        for c, t in zip(cur, new):
+            c.copy_(t)
+        return out
+
     def feed(self, block: torch.Tensor) -> StreamOut:
         """One ingest buffer (see ``process_buffer``) -> its StreamOut."""
-        self.state, out = process_buffer(self.bound_spec(), self.state, block,
-                                         self.max_frames, self.sync_mode)
-        return out
+        lead = block.shape[:-1] if block.is_complex() else block.shape[:-2]
+        if lead != self.frames_seen.shape:
+            raise ValueError(f"StreamingReceiver.feed: a block of "
+                             f"{tuple(lead)} channels for state of "
+                             f"{tuple(self.frames_seen.shape)}")
+        return self.graphs(self._step, (block,),
+                           restore=self._state_buffers())
 
     def feed_int16(self, raw: torch.Tensor) -> StreamOut:
         """Interleaved int16 [..., 2*n] (``tx.from_int16``) -> StreamOut."""

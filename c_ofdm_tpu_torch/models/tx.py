@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import chanest, modulation
+from ..utils import graphs
 from .frame import FrameSpec
 
 
@@ -24,6 +25,13 @@ def transmit(spec: FrameSpec, mac_bytes: torch.Tensor) -> torch.Tensor:
     burst = spec.tensors["t2_burst"].expand(*lead, cfg.t2sin_size)
     pre = spec.tensors["preamble_time"].expand(*lead, cfg.preamble_len)
     return torch.cat([burst, pre, msg], dim=-1)
+
+
+transmit_jit = graphs.jit(transmit, static_argnums=(0,))
+transmit_jit.__doc__ = """``transmit`` as the JAX package's ``transmit_jit``:
+on CUDA tensors one CUDA-graph replay per call, captured on the first call
+for each (spec, payload shape and dtype, device); on CPU tensors eager
+(``utils/graphs.py::jit``)."""
 
 
 def to_int16(spec: FrameSpec, iq: torch.Tensor) -> torch.Tensor:

@@ -72,9 +72,8 @@ def bins_transform(spec, time_syms: torch.Tensor):
     freq = fftops.fft_fwd(time_syms, backend)
     if spec.structured:
         return rx_split_bins(spec, freq)
-    dev = freq.device
-    return (freq[..., torch.as_tensor(spec.pilot_bins, device=dev).long()],
-            freq[..., torch.as_tensor(spec.data_bins, device=dev).long()])
+    return (freq[..., spec.tensors["pilot_idx"]],
+            freq[..., spec.tensors["data_idx"]])
 
 
 def pilot_equalize(spec, pil: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
@@ -104,10 +103,14 @@ def ofdm_demodulate(spec, time_syms: torch.Tensor) -> torch.Tensor:
 def _tx_bin_maps(spec) -> np.ndarray:
     """Gather-based frequency-bin construction: each FFT bin reads from
     index ``src[bin]`` of [pilot_ampl, data..., 0]."""
-    cfg = spec.cfg
+    return tx_bin_maps_np(spec.cfg, spec.pilot_bins, spec.data_bins)
+
+
+def tx_bin_maps_np(cfg, pilot_bins, data_bins) -> np.ndarray:
+    """``_tx_bin_maps`` from the config and the bin maps."""
     src = np.full(cfg.fft_size, 1 + cfg.num_data_subc, dtype=np.int32)  # zero slot
-    src[spec.pilot_bins] = 0                                            # pilot slot
-    src[spec.data_bins] = 1 + np.arange(cfg.num_data_subc, dtype=np.int32)
+    src[pilot_bins] = 0                                                 # pilot slot
+    src[data_bins] = 1 + np.arange(cfg.num_data_subc, dtype=np.int32)
     return src
 
 
@@ -198,8 +201,7 @@ def ofdm_modulate(spec, points: torch.Tensor, num_symb: int) -> torch.Tensor:
             zero = torch.zeros((*lead, num_symb, 1), dtype=points.dtype,
                                device=points.device)
             lookup = torch.cat([pilot, data, zero], dim=-1)
-            src = torch.as_tensor(_tx_bin_maps(spec), device=points.device)
-            freq = lookup[..., src.long()]
+            freq = lookup[..., spec.tensors["tx_bin_src"]]
         time = fftops.ifft_unnorm(freq, backend) / np.sqrt(cfg.fft_size)
     return torch.cat([time[..., -cfg.cp_size:], time], dim=-1)
 

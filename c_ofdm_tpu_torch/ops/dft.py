@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import graphs
 from . import _kernels, fft
 
 RADIX_MIN_N = 16      # n / 8 threads per row, 8 points each
@@ -41,7 +42,7 @@ def _route(n: int) -> str:
     return "dense"
 
 
-@functools.lru_cache(maxsize=16)
+@graphs.device_cache(maxsize=16)
 def dft_planes(n: int, sign: int, scale: float,
                device: torch.device) -> torch.Tensor:
     """(Re W, Im W) as one float32 tensor [2, n, n] on ``device``: the
@@ -51,7 +52,7 @@ def dft_planes(n: int, sign: int, scale: float,
                           torch.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@graphs.device_cache(maxsize=16)
 def fft_twiddles(n: int, sign: int, device: torch.device) -> torch.Tensor:
     """exp(sign · 2πi · k / n) for k < n, complex64 [n] on ``device``:
     computed in float64 and rounded once; cached."""
@@ -145,9 +146,25 @@ def _lib() -> ctypes.CDLL:
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.c_ofdm_fft_prepare.argtypes = [ctypes.c_longlong]
+    lib.c_ofdm_fft_prepare.restype = ctypes.c_int
     lib.c_ofdm_dft_error_string.argtypes = [ctypes.c_int]
     lib.c_ofdm_dft_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _prepare(n: int, device_index: int) -> None:
+    """The radix kernel's once-per-(process, device, n) set-up (its dynamic
+    shared memory limit, ``c_ofdm_fft_prepare``); runs at the first launch
+    of n on the device, which is never inside a CUDA-graph capture: the
+    captured call's warm-up launches first (``utils/graphs.py``)."""
+    lib = _lib()
+    with torch.cuda.device(device_index):
+        rc = lib.c_ofdm_fft_prepare(n)
+    if rc != 0:
+        raise RuntimeError(f"dft radix kernel set-up failed for n={n}: "
+                           f"{lib.c_ofdm_dft_error_string(rc).decode()}")
 
 
 def dft(x: torch.Tensor, sign: int = -1, scale: float = 1.0) -> torch.Tensor:
@@ -179,6 +196,7 @@ def dft(x: torch.Tensor, sign: int = -1, scale: float = 1.0) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "radix":
+            _prepare(n, x.device.index)
             tw = fft_twiddles(n, sign, x.device)
             rc = lib.c_ofdm_fft(x2.data_ptr(), x2.stride(0), tw.data_ptr(),
                                 out.data_ptr(), x2.shape[0], n, sign,

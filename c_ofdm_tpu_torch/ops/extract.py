@@ -228,7 +228,11 @@ def _launch(fn, x: torch.Tensor, starts: torch.Tensor, out: torch.Tensor,
             rows: int, per_row: int, win: int, body: str | None) -> None:
     """One launch of the shared kernel on the current stream (no
     synchronise) in the class ``launch_plan`` gives, counted on the wrapper
-    ``fn``; raises if the launch was refused."""
+    ``fn``; raises if the launch was refused.  Under a CUDA-graph capture
+    the current stream is the capture stream, so the launch is recorded
+    into the graph; the kernel's per-window plan (``plan_window``) reads
+    the operands' addresses, which a graph fixes (its static inputs and its
+    pool), so the captured plan holds on every replay."""
     n = x.shape[-1]
     plan = launch_plan(rows * per_row, win, _ELEM_BYTES[x.dtype], body)
     lib = _lib()

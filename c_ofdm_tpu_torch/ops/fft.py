@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import graphs
 from . import dft
 from .modulation import real_dtype
 
@@ -113,7 +114,7 @@ def complex_matmul(x: torch.Tensor, w: torch.Tensor,
     return torch.complex(yr, yi)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.device_cache(maxsize=32)
 def _full_basis(n: int, sign: int, device: torch.device,
                 rdt: torch.dtype) -> torch.Tensor:
     return basis_pair(_dft_matrix_np(n, sign), device, rdt)
@@ -132,7 +133,7 @@ def _ct_factors(n: int) -> tuple:
     return 1 << (a // 2), 1 << (a - a // 2)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.device_cache(maxsize=32)
 def _ct_constants(n: int, sign: int, device: torch.device,
                   dtype: torch.dtype):
     """(w1 [2, N1, N1], w2 [2, N2, N2], twiddle [N2, N1] complex) of

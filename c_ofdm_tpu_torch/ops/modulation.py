@@ -9,11 +9,11 @@ max-log soft LLRs (``soft_llrs``), which the reference lacks.
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 
+from ..utils import graphs
 from . import bits as bitops
 
 MOD_BPSK, MOD_QAM4, MOD_QAM16, MOD_QAM64, MOD_QAM256 = 1, 2, 4, 6, 8
@@ -46,8 +46,7 @@ def map_symbols(symbols: torch.Tensor, mod_type: int,
     bit-identical to the table)."""
     rdt = real_dtype(dtype)
     if mod_type == 1:
-        tab = torch.as_tensor(constellation(1), dtype=dtype,
-                              device=symbols.device)
+        tab = _bpsk_table(dtype, symbols.device)
         return torch.where(symbols == 0, tab[0], tab[1])
     side = 1 << (mod_type // 2)
     scale = 2.0 / (side - 1)
@@ -57,6 +56,12 @@ def map_symbols(symbols: torch.Tensor, mod_type: int,
     rt2 = float(np.asarray(np.sqrt(2.0), dtype=np.float32 if rdt == torch.float32
                            else np.float64))
     return torch.complex(re / rt2, im / rt2)
+
+
+@graphs.device_cache(maxsize=8)
+def _bpsk_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``constellation(1)`` in ``dtype`` on ``device``, made once."""
+    return torch.as_tensor(constellation(1), dtype=dtype, device=device)
 
 
 def map_bytes(data: torch.Tensor, mod_type: int,
@@ -85,7 +90,7 @@ def demap_bytes(points: torch.Tensor, mod_type: int) -> torch.Tensor:
     return bitops.symbols_to_bytes(hard_demap(points, mod_type), mod_type)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.device_cache(maxsize=32)
 def _llr_tables(mod_type: int, dtype: torch.dtype, device: torch.device):
     """(constellation [S] in ``dtype``, bit-is-0 mask [mod_type, S]) on
     ``device``: bit b of each symbol index, MSB first to match

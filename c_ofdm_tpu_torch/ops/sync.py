@@ -58,8 +58,7 @@ def t2_ratio_track(spec, capture: torch.Tensor,
     if backend == "fft":
         e = fftops.fft_fwd(blocks).abs() ** 2
         total = e.sum(-1)
-        mask = torch.as_tensor(spec.t2_mask, dtype=e.dtype, device=e.device)
-        masked = (e * mask).sum(-1)
+        masked = (e * spec.tensors["t2_mask"].to(e.dtype)).sum(-1)
     else:
         s = fftops.complex_matmul(blocks, spec.tensors["t2_basis"])
         e = s.abs() ** 2
@@ -262,6 +261,13 @@ def _mf_spectrum_np(mf: np.ndarray, m: int) -> np.ndarray:
     return np.conj(np.fft.fft(np.conj(mf_pad)))
 
 
+def mf_spectrum_key(m: int) -> str:
+    """The ``FrameSpec.tensors`` entry holding the m-point spectrum: m is
+    4096 (the overlap-save chunk, also the single-FFT size up to n + L =
+    4096) or 8192, the only two sizes ``matched_filter_scores`` takes."""
+    return "mf_fft_os" if m == OVERLAP_SAVE_LEN else f"mf_fft_{m}"
+
+
 def _corr_fft(x: torch.Tensor, mf_f: torch.Tensor, m: int) -> torch.Tensor:
     """Circular correlation of x[..., m_or_less] with the matched filter via
     an m-point FFT pair, given the filter's spectrum ``mf_f`` [m]."""
@@ -283,9 +289,8 @@ def matched_filter_scores(spec, x: torch.Tensor) -> torch.Tensor:
     if n <= 2048:
         corr = _corr_toeplitz(spec, x)
     elif m <= 8192:
-        mf_f = torch.from_numpy(_mf_spectrum_np(spec.matched_filter, m)).to(
-            device=x.device, dtype=x.dtype)
-        corr = _corr_fft(x, mf_f, m)[..., :n].abs()
+        corr = _corr_fft(x, spec.tensors[mf_spectrum_key(m)],
+                         m)[..., :n].abs()
     else:
         C = OVERLAP_SAVE_LEN
         hop = C - L + 1

@@ -38,7 +38,8 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               buffer, each launch in the class its shape names, K1 never
   9 stream-cpu  C = 1 and 8: every output field equal to the port's CPU run
  10 state     save_state/load_state after buffer 2 resumes identically
- 11 no-sync   one C = 8 buffer under torch.cuda.set_sync_debug_mode("error")
+ 11 no-sync   one C = 8 buffer under torch.cuda.set_sync_debug_mode("error"),
+              eager (process_buffer) and as the receiver's graph replay
  12 stream-timing  per-buffer median (CUDA events), samples/s, device time
               and idle share at C = 1/8/64; K2/K3 against their plain
               versions and the library call at the path's shapes (device
@@ -136,6 +137,24 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               C = 8 rings, S = 4, equal to StreamingReceiver(channels=8);
               (d) scaling-bench --devices 1 --channels 8 --frames-per-block
               40 in-process, then --devices 2 raising the mesh's ValueError
+
+ 25 compiled  the JAX package's compiled entry points as CUDA-graph
+              replays (utils/graphs.py), each against the same code run
+              eagerly on the same inputs (the captured calls made to run
+              their steps kernel by kernel): FlagshipStep at B = 256 under
+              matmul (K1; also transmit_jit -> receive_batch_jit) and pallas
+              (K1 + 2 K4), the wideband step at B = 128 under ct (K1 wide);
+              StreamingReceiver on phase 8's rings, S = 4, gated, at C = 1
+              (K2 twice), 8 and 64 (K3 twice), and C = 8 under pallas (K3
+              twice + K4); the rx CLI on phase 23's 20-buffer stream, full
+              drain, --drain metadata and --chunk 4.  Per cell: bytes,
+              positions, valid, found, num_found and the state's
+              next_min_pos and frames_seen exactly equal, the float fields'
+              max difference printed; K1-K4 launches per replay equal to
+              per eager call, and torch.profiler sees each kernel they name
+              as often per replay; eager and graph in turns: wall per call
+              (CUDA events), device time, idle share, capture seconds, the
+              graph pool's memory and the copy launches around a replay
 
 Then one JSON line describing the kernels, and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -557,17 +576,24 @@ def run_streaming(dev, profile=None):
         f"bytes), load_state into a new receiver: buffers 3-{S} identical "
         f"to the uninterrupted run")
 
-    # ---- 11: no host synchronisation inside one gated buffer
+    # ---- 11: no host synchronisation inside one gated buffer, eager
+    # (process_buffer) and as the receiver's graph replay (captured first)
     rxr = streaming.StreamingReceiver(spec, channels=C)
+    rxr.feed(blocks[0])
+    rxr.state = streaming.init_state(spec, channels=C)
+    state = streaming.init_state(spec, channels=C)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        _, eager = streaming.process_buffer(spec, state, blocks[0])
         out = rxr.feed(blocks[0])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    same_outputs([out], outs[C][:1], f"C={C} under sync debug mode")
+    same_outputs([eager], outs[C][:1], f"C={C} eager under sync debug mode")
+    same_outputs([out], outs[C][:1], f"C={C} replay under sync debug mode")
     say("no-sync", f"C={C}: one gated buffer ran under "
-        f"set_sync_debug_mode('error') with no host synchronisation")
+        f"set_sync_debug_mode('error') with no host synchronisation, as "
+        f"eager process_buffer and as the receiver's graph replay")
 
     # ---- 12: timing
     kernel_ms, plain_ms, bound, library_ms = stream_timing(spec, data,
@@ -577,7 +603,7 @@ def run_streaming(dev, profile=None):
     run_pallas_stream(dev, data[STATE_C])
     return {"launches": launches, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "data": data}
 
 
 def run_pallas_stream(dev, data):
@@ -2184,6 +2210,382 @@ def run_parallel(dev, card):
     return k3_launches
 
 
+# ---- 25: the compiled paths (utils/graphs.py: one CUDA-graph replay per
+# call in place of jax.jit's one program per call)
+
+@contextlib.contextmanager
+def eager_calls():
+    """Every captured call of the port runs its step eagerly instead, kernel
+    by kernel: the body its graph records (the eager side of phase 25's
+    comparisons).  The launch counts are put back on exit, so only the
+    replays count."""
+    from c_ofdm_tpu_torch.utils import graphs
+    call = graphs.CapturedCall.__call__
+    counts = graphs.launch_counts()
+    graphs.CapturedCall.__call__ = (
+        lambda self, fn, inputs, restore=(), static=(): fn(*inputs))
+    try:
+        yield
+    finally:
+        graphs.CapturedCall.__call__ = call
+        torch.cuda.synchronize()
+        graphs._set_counts(counts)
+
+
+def count_names(delta):
+    """{wrapper.attribute[class]: n} of a launch-count delta, for printing."""
+    return {f"{f.__name__}.{a}" + (f"[{k}]" if k else ""): v
+            for (f, a, k), v in sorted(delta.items(),
+                                       key=lambda kv: str(kv[0][1:]))}
+
+
+def launches_of(fn):
+    """The launch-count delta of one call of fn()."""
+    from c_ofdm_tpu_torch.utils import graphs
+    before = graphs.launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in graphs.launch_counts().items()
+            if v != before.get(k, 0)}
+
+
+def kernel_names(delta):
+    """The device kernels one call's launch-count delta names, with how many
+    of each: K1-K3's body by class, K4's route."""
+    want = {}
+    for (f, attr, k), v in delta.items():
+        if attr == "class_launches":
+            name = f"extract_{k}_kernel"
+        elif attr in ("radix_launches", "dense_launches"):
+            name = "fft_kernel" if attr == "radix_launches" else "dft_kernel"
+        else:
+            continue
+        want[name] = want.get(name, 0) + v
+    return want
+
+
+def profiled_names(events, names, reps):
+    """Per call, how many device kernels of each name torch.profiler saw."""
+    from torch.autograd import DeviceType
+    return {n: sum(e.count for e in events
+                   if e.device_type == DeviceType.CUDA and n in e.key) / reps
+            for n in names}
+
+
+def max_diff(a, b):
+    d = (a.double() - b.double()).abs() if not a.is_complex() else \
+        (a.to(torch.complex128) - b.to(torch.complex128)).abs()
+    d = d[~torch.isnan(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def compiled_timing(tag, fns, reps=8, prof_reps=4):
+    """Eager and graph in turns (eager, graph, graph, eager): per call the
+    median wall by CUDA events around each call, the device time (kernel
+    sum, torch.profiler) and the idle share.  ``fns`` maps "eager" and
+    "graph" to fn(i); the eager turns run under eager_calls().  Returns
+    {mode: (wall ms, device ms)} and the graph's profiler events."""
+    wall = {k: [] for k in fns}
+    devt = {k: [] for k in fns}
+    events = None
+    for k in ("eager", "graph", "graph", "eager"):
+        ctx = eager_calls() if k == "eager" else contextlib.nullcontext()
+        with ctx:
+            fns[k](0)
+            torch.cuda.synchronize()
+            wall[k] += [cuda_ms(fns[k], 1) for _ in range(reps)]
+            ms, ev = device_ms(fns[k], prof_reps)
+            devt[k].append(ms)
+        if k == "graph":
+            events = ev
+    out = {k: (statistics.median(wall[k]), statistics.median(devt[k]))
+           for k in fns}
+    (we, de), (wg, dg) = out["eager"], out["graph"]
+    say("compiled", f"{tag}: eager {we:.4f} ms per call (device {de:.4f} ms, "
+        f"idle {1 - de / we:.1%}); graph {wg:.4f} ms per call (device "
+        f"{dg:.4f} ms, idle {1 - dg / wg:.1%}); wall graph/eager "
+        f"{wg / we:.3f}, device graph/eager {dg / de:.3f} (medians of "
+        f"{2 * reps} calls and 2 profiled windows of {prof_reps} calls each)")
+    return out, events
+
+
+def check_replay_counts(tag, eager_fn, graph_fn, events, reps):
+    """One eager call's launch counts = one replay's, and the profiler saw
+    each kernel they name, as many times per replay."""
+    with eager_calls():
+        eager = launches_of(eager_fn)
+    replay = launches_of(graph_fn)
+    check(eager == replay, f"compiled {tag}: launches per replay "
+          f"{count_names(replay)} != per eager call {count_names(eager)}")
+    want = kernel_names(replay)
+    seen = profiled_names(events, want, reps)
+    check(all(seen[n] == v for n, v in want.items()),
+          f"compiled {tag}: the profiler saw {seen} per replay, the counts "
+          f"name {want}")
+    return replay, seen
+
+
+def graph_record(tag, call):
+    """Print and return what the captured call's graphs cost."""
+    from c_ofdm_tpu_torch.utils import graphs
+    recs = list(call.graphs.values())
+    check(recs, f"compiled {tag}: no graph was captured")
+    for g in recs:
+        say("compiled", f"{tag}: graph captured in {g.capture_s:.3f} s "
+            f"(warm-up {graphs.WARMUP} eager runs + capture), pool "
+            f"{g.pool_bytes / 2**20:.1f} MiB; per call {len(g.static_in)} "
+            f"input copy and {g.clone_launches} output clone launches "
+            f"beside the replay")
+    return recs
+
+
+def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False):
+    """One flagship step: FlagshipStep's graph against the same step run
+    eagerly on the same payloads."""
+    from c_ofdm_tpu_torch import make_frame_spec
+    from c_ofdm_tpu_torch.models import rx, tx
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend=backend))
+    payloads = [torch.from_numpy(rng.integers(
+        0, 256, (batch, cfg.frame_bytes), dtype=np.uint8)).to(dev)
+        for _ in range(2)]
+    with eager_calls():
+        want = [step(p) for p in payloads]
+    got = [step(p) for p in payloads]
+    torch.cuda.synchronize()
+    recs = graph_record(tag, step.graphs)
+    worst = 0.0
+    for p, (rw, sw), (rg, sg) in zip(payloads, want, got):
+        for name in ("frame_start", "t2_begin", "pr_begin", "found"):
+            check(torch.equal(getattr(sw, name), getattr(sg, name)),
+                  f"compiled {tag}: {name} graph != eager")
+        check(torch.equal(rw.mac_bytes, rg.mac_bytes)
+              and torch.equal(rg.mac_bytes, p) and bool(sg.found.all()),
+              f"compiled {tag}: bytes graph != eager or != payload")
+        for name in ("constellation", "chan_est", "cfo"):
+            worst = max(worst, max_diff(getattr(rw, name),
+                                        getattr(rg, name)))
+    if jit_check:
+        spec = step.bound_spec()
+        res, s = rx.receive_batch_jit(spec, tx.transmit_jit(spec,
+                                                            payloads[0]))
+        check(torch.equal(res.mac_bytes, got[0][0].mac_bytes)
+              and torch.equal(s.pr_begin, got[0][1].pr_begin)
+              and max_diff(res.constellation, got[0][0].constellation) == 0,
+              f"compiled {tag}: transmit_jit -> receive_batch_jit != the "
+              f"step's graph")
+    say("compiled", f"{tag}: B={batch} graph = eager: bytes, frame_start, "
+        f"t2_begin, pr_begin, found exact (payloads exact); constellation, "
+        f"chan_est, cfo max abs diff {worst:.3g}"
+        + ("; transmit_jit -> receive_batch_jit = the step's graph"
+           if jit_check else ""))
+    fns = {m: (lambda i: step(payloads[i % 2])) for m in ("eager", "graph")}
+    times, events = compiled_timing(tag, fns)
+    replay, seen = check_replay_counts(tag, lambda: step(payloads[0]),
+                                       lambda: step(payloads[0]), events, 4)
+    say("compiled", f"{tag}: launches per replay = per eager call "
+        f"{count_names(replay)}; profiler per replay {seen}")
+    return {"tag": tag, "times": times, "launches": count_names(replay),
+            "worst": worst, "capture_s": recs[0].capture_s,
+            "pool_mib": recs[0].pool_bytes / 2**20}
+
+
+def stream_cell(dev, tag, spec, blocks, C):
+    """S buffers through a StreamingReceiver's graph against the same
+    receiver code run eagerly, each from the initial state."""
+    from c_ofdm_tpu_torch.models import streaming
+    rxe = streaming.StreamingReceiver(spec, channels=0 if C == 1 else C)
+    rxg = streaming.StreamingReceiver(spec, channels=0 if C == 1 else C)
+    with eager_calls():
+        want = [rxe.feed(b) for b in blocks]
+    got = [rxg.feed(b) for b in blocks]
+    torch.cuda.synchronize()
+    recs = graph_record(tag, rxg.graphs)
+    worst = {"diag": 0.0, "cfo": 0.0, "carry": 0.0}
+    all_bytes = True
+    for i, (w, g) in enumerate(zip(want, got)):
+        for name in ("positions", "valid", "num_found"):
+            check(torch.equal(getattr(w, name), getattr(g, name)),
+                  f"compiled {tag}: buffer {i} {name} graph != eager")
+        v = w.valid
+        check(torch.equal(w.mac_bytes[v], g.mac_bytes[v]),
+              f"compiled {tag}: buffer {i} bytes graph != eager")
+        all_bytes &= torch.equal(w.mac_bytes, g.mac_bytes)
+        for name in ("diag", "cfo"):
+            worst[name] = max(worst[name], max_diff(getattr(w, name)[v],
+                                                    getattr(g, name)[v]))
+    se, sg = rxe.state, rxg.state
+    for name in ("next_min_pos", "frames_seen", "carry_valid"):
+        check(torch.equal(getattr(se, name), getattr(sg, name)),
+              f"compiled {tag}: state {name} graph != eager")
+    worst["carry"] = max_diff(se.carry, sg.carry)
+    found = int(sg.frames_seen.sum())
+    say("compiled", f"{tag}: {len(blocks)} buffers, graph = eager: "
+        f"positions, valid, num_found, the valid slots' bytes (all slots' "
+        f"bytes equal: {all_bytes}), next_min_pos, frames_seen exact "
+        f"({found} frames); max abs diff diag {worst['diag']:.3g}, cfo "
+        f"{worst['cfo']:.3g}, carry {worst['carry']:.3g}")
+    S_ = len(blocks)
+    fns = {m: (lambda i, r=r: r.feed(blocks[i % S_]))
+           for m, r in (("eager", rxe), ("graph", rxg))}
+    times, events = compiled_timing(tag, fns)
+    replay, seen = check_replay_counts(tag, lambda: rxe.feed(blocks[0]),
+                                       lambda: rxg.feed(blocks[0]), events, 4)
+    say("compiled", f"{tag}: launches per replay = per eager call "
+        f"{count_names(replay)}; profiler per replay {seen}")
+    return {"tag": tag, "times": times, "launches": count_names(replay),
+            "worst": worst, "capture_s": recs[0].capture_s,
+            "pool_mib": recs[0].pool_bytes / 2**20}
+
+
+def rx_app_cell(dev, card):
+    """The rx CLI stream of phase 23 (a tx-written file of 20 stock
+    buffers, 738 frames): the full drain, --drain metadata and --chunk 4,
+    each run with its captured steps and eagerly, in turns.  The wall per
+    buffer is the app's steady one (the buffers after the first call or
+    chunk); the device time per buffer is taken over the same buffers: a
+    profiled run of the file less a profiled run of its first call's
+    buffers alone, which carries the same first-call work (the graphs'
+    warm-up runs and capture, the first buffer or chunk)."""
+    from pathlib import Path
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.apps import txstream
+    from c_ofdm_tpu_torch.ops import extract
+    cfg = ModemConfig()
+    buf = cfg.rx_buf_size * cfg.frame_len
+    k2 = extract.extract_windows_single
+    build = Path(__file__).resolve().parent / "c_ofdm_tpu_torch" / "_build"
+    build.mkdir(exist_ok=True)
+    cells = []
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        d = Path(tmp)
+        n_long = 738
+        payload = np.random.default_rng(SEED + 23).integers(
+            0, 256, n_long * 248, dtype=np.uint8).tobytes()
+        (d / "long.bin").write_bytes(payload)
+        with eager_calls():
+            rc, _ = _app(txstream, ["--in", d / "long.bin", "--out",
+                                    d / "s.bin", "--gap", 500,
+                                    "--device", dev])
+        check(rc == 0, f"compiled rx: tx exited {rc}")
+        stream = (d / "s.bin").read_bytes()
+        for excl in (1, 4):         # int16 IQ: 4 bytes per sample
+            (d / f"head{excl}.bin").write_bytes(stream[:excl * buf * 4])
+        for label, extra in (("full", ()),
+                             ("metadata", ("--drain", "metadata")),
+                             ("chunk4", ("--drain", "metadata", "--chunk",
+                                         4))):
+            runs = {"eager": [], "graph": []}
+            turns = ("eager", "graph", "graph", "eager") if label == "full" \
+                else ("eager", "graph")
+            for mode in turns:
+                ctx = eager_calls() if mode == "eager" else \
+                    contextlib.nullcontext()
+                with ctx:
+                    k0 = k2.launches
+                    r = _rx_app(d, f"{label}_{mode}", d / "s.bin", dev,
+                                *extra)
+                    torch.cuda.synchronize()
+                    runs[mode].append((r, k2.launches - k0))
+            (be, re_, se), ke = runs["eager"][0]
+            (bg, rg, sg), kg = runs["graph"][0]
+            keys = ("buffers", "frames", "crc_failures", "max_seq",
+                    "payload_checksum_u32")
+            check(be == bg and {k: se.get(k) for k in keys}
+                  == {k: sg.get(k) for k in keys},
+                  f"compiled rx {label}: graph {sg} != eager {se}")
+            same_rows(rg, re_, f"compiled rx {label}, graph against eager")
+            cfo_diff = max((abs(a["cfo"] - b["cfo"]) for a, b in
+                            zip(rg, re_)), default=0.0)
+            check(sg["frames"] == n_long and sg["crc_failures"] == 0
+                  and (label != "full" or bg == payload),
+                  f"compiled rx {label}: {sg['frames']} frames")
+            check(ke == kg == 2 * sg["buffers"],
+                  f"compiled rx {label}: K2 launched {ke} (eager) and {kg} "
+                  f"(graph) times in {sg['buffers']} buffers")
+            per_buf = {m: statistics.median(
+                buf / x[0][2]["steady_samples_per_s"] * 1e3
+                for x in runs[m]) for m in runs}
+            excl = 4 if label == "chunk4" else 1
+            devt = {}
+            for mode in ("eager", "graph"):
+                ctx = eager_calls() if mode == "eager" else \
+                    contextlib.nullcontext()
+                run_ms = {}
+                with ctx:
+                    for part, src in (("all", d / "s.bin"),
+                                      ("head", d / f"head{excl}.bin")):
+                        run_ms[part], _ = device_ms(lambda i: _rx_app(
+                            d, f"{label}_{mode}_prof_{part}", src, dev,
+                            *extra), 1)
+                devt[mode] = (run_ms["all"] - run_ms["head"]) / (
+                    sg["buffers"] - excl)
+            say("compiled", f"rx {label} on {card}: graph = eager (decoded "
+                f"bytes, {len(rg)} metrics rows with cfo max abs diff "
+                f"{cfo_diff:.3g}, tallies {({k: sg.get(k) for k in keys})}); "
+                f"K2 {kg // sg['buffers']} per buffer in both; steady wall per "
+                f"buffer (buffers after the first call or chunk) eager "
+                f"{per_buf['eager']:.4f} ms (device over the same buffers, "
+                f"a run less a run of its first {excl} buffer(s), "
+                f"{devt['eager']:.4f} ms, idle "
+                f"{1 - devt['eager'] / per_buf['eager']:.1%}), graph "
+                f"{per_buf['graph']:.4f} ms (device {devt['graph']:.4f} ms, "
+                f"idle {1 - devt['graph'] / per_buf['graph']:.1%}); "
+                f"steady_samples_per_s eager "
+                f"{[x[0][2]['steady_samples_per_s'] for x in runs['eager']]}"
+                f", graph "
+                f"{[x[0][2]['steady_samples_per_s'] for x in runs['graph']]}")
+            cells.append({"tag": f"rx {label}", "times": {
+                m: (per_buf[m], devt[m]) for m in runs}})
+    return cells
+
+
+def run_compiled(dev, card, stream_data):
+    """Phase 25: the compiled paths on the card, each graph against the same
+    code run eagerly; the launch counts of K1-K4 set to 0 at the start and
+    read at the end (eager runs excluded)."""
+    from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+    from c_ofdm_tpu_torch.ops import dft, extract
+    t0 = time.perf_counter()
+    fns = (extract.extract_windows, extract.extract_windows_single,
+           extract.extract_windows_multi, dft.dft)
+    for f in fns:
+        f.launches = 0
+    dft.dft.radix_launches = dft.dft.dense_launches = 0
+    rng = np.random.default_rng(SEED + 25)
+    cells = []
+
+    def timed(make):
+        t = time.perf_counter()
+        made = make()
+        for c in (made if isinstance(made, list) else [made]):
+            c["phase_s"] = time.perf_counter() - t
+            cells.append(c)
+
+    for tag, cfg, backend, batch in (
+            ("flagship matmul", ModemConfig(), "matmul", B),
+            ("flagship pallas", ModemConfig(), "pallas", B),
+            ("wideband ct", ModemConfig(**WIDEBAND), "ct", B_WIDE)):
+        timed(lambda: flagship_cell(dev, tag, cfg, backend, batch, rng,
+                                    jit_check=backend == "matmul"))
+    cfg = ModemConfig()
+    for backend, chans in (("matmul", CHANNELS), ("pallas", (STATE_C,))):
+        spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                               fft_backend=backend)
+        for C in chans:
+            timed(lambda: stream_cell(dev, f"stream {backend} C={C}", spec,
+                                      stream_data[C][0], C))
+    timed(lambda: rx_app_cell(dev, card))
+    counts = {f.__name__: f.launches for f in fns}
+    check(all(counts.values()), f"compiled: a kernel never replayed: {counts}")
+    say("compiled", f"replay launches in this phase {counts} (K4 radix "
+        f"{dft.dft.radix_launches}, dense {dft.dft.dense_launches})")
+    print(json.dumps({"compiled": cells}), flush=True)
+    say("compiled", f"phase took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="FILE",
@@ -2298,7 +2700,10 @@ def main():
 
     # ---- 24: parallel/
     k3_sharded = run_parallel(dev, card)
-    say("parallel", f"all phases {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 25: the compiled paths (CUDA-graph replays)
+    replays = run_compiled(dev, card, stream["data"])
+    say("compiled", f"all phases {time.perf_counter() - t_start:.1f} s")
 
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"
     print(json.dumps({"kernels": [{
@@ -2306,7 +2711,7 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "c_ofdm_tpu/ops/pallas_extract.py:37",
-        "launches": launches,
+        "launches": launches + replays["extract_windows"],
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -2318,7 +2723,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "c_ofdm_tpu/ops/pallas_extract.py:108",
-        "launches": stream["launches"]["single"],
+        "launches": (stream["launches"]["single"]
+                     + replays["extract_windows_single"]),
         "max_abs_err": ring_err["single"],
         "ms": stream["kernel_ms"]["single"],
         "plain_ms": stream["plain_ms"]["single"],
@@ -2330,7 +2736,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "c_ofdm_tpu/ops/pallas_extract.py:183",
-        "launches": stream["launches"]["multi"] + k3_sharded,
+        "launches": (stream["launches"]["multi"] + k3_sharded
+                     + replays["extract_windows_multi"]),
         "max_abs_err": ring_err["multi"],
         "ms": stream["kernel_ms"]["multi"],
         "plain_ms": stream["plain_ms"]["multi"],
@@ -2342,7 +2749,7 @@ def main():
         "route": "cuda",
         "source": "c_ofdm_tpu_torch/csrc/dft.cu",
         "replaces": "c_ofdm_tpu/ops/pallas_fft.py:41",
-        "launches": k4_launches,
+        "launches": k4_launches + replays["dft"],
         "max_abs_err": dft_err,
         "ms": k4["cold"]["kernel"],
         "plain_ms": k4["cold"]["plain"],

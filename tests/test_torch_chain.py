@@ -207,8 +207,10 @@ def test_unported_branches_raise():
 def test_port_never_imports_jax():
     """The port's package imports torch and numpy only: no source file
     imports jax, and building + running the flagship step and a streaming
-    buffer, a pallas-backend step, the MAC codec and the channel simulator,
-    importing every ``io.*``, ``apps.*`` and ``parallel.*`` module, and
+    buffer, a pallas-backend step, the ``_jit`` entry points (their
+    captured-call module ``utils/graphs.py``), the MAC codec and the
+    channel simulator, importing every ``io.*``, ``apps.*`` and
+    ``parallel.*`` module, and
     running ``python -m c_ofdm_tpu_torch tx ... --device cpu`` and ``rx``
     on its stream in a fresh interpreter leaves jax and the JAX package out
     of sys.modules."""
@@ -239,6 +241,11 @@ def test_port_never_imports_jax():
         "res, s = FlagshipStep(pspec)(torch.zeros((2, pspec.cfg.frame_bytes),"
         " dtype=torch.uint8))\n"
         "assert bool(s.found.all())\n"
+        "from c_ofdm_tpu_torch.utils import graphs\n"
+        "from c_ofdm_tpu_torch.models import rx as trx, tx as ttx\n"
+        "res, s = trx.receive_batch_jit(pspec, ttx.transmit_jit(pspec,"
+        " torch.zeros((2, pspec.cfg.frame_bytes), dtype=torch.uint8)))\n"
+        "assert bool(s.found.all()) and not trx.receive_batch_jit.graphs.graphs\n"
         "from c_ofdm_tpu_torch.channel.sim import ChannelParams, "
         "apply_channel\n"
         "from c_ofdm_tpu_torch.mac.mac import Mac\n"

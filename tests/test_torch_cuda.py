@@ -668,3 +668,240 @@ def test_world_of_one_sharded_receiver_on_card_equals_cpu(dev):
     np.testing.assert_array_equal(cpu.mac_bytes[valid].numpy(), payload)
     torch.testing.assert_close(card.diag.cpu()[valid], cpu.diag[valid],
                                rtol=0, atol=1e-4)
+
+
+# ---- the compiled entry points: CUDA-graph replays (utils/graphs.py)
+
+def _stream_blocks(C, S=3, seed=9):
+    """S consecutive stock buffers, [S, n] (C = 0) or [S, C, n] complex64
+    on the CPU, with frames planted at random starts (some straddle a
+    buffer boundary) in AWGN."""
+    from c_ofdm_tpu_torch.models import tx
+    tx_spec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    rng = np.random.default_rng(seed)
+    n = CFG.rx_buf_size * CFG.frame_len
+    rows = max(C, 1)
+    total = S * n
+    sig = 0.05 * (rng.standard_normal((rows, total))
+                  + 1j * rng.standard_normal((rows, total)))
+    nf = 24
+    payload = rng.integers(0, 256, (rows, nf, CFG.frame_bytes),
+                           dtype=np.uint8)
+    frames = tx.transmit(tx_spec, torch.from_numpy(payload)).numpy()
+    for c in range(rows):
+        starts = np.sort(rng.choice(total // CFG.frame_len - 1, nf,
+                                    replace=False)) * CFG.frame_len
+        starts += rng.integers(0, CFG.frame_len // 2, nf)
+        for i, s in enumerate(starts):
+            sig[c, s:s + CFG.frame_len] += 60.0 * frames[c, i]
+    blocks = sig.astype(np.complex64).reshape(rows, S, n).transpose(1, 0, 2)
+    return torch.from_numpy(np.ascontiguousarray(
+        blocks[:, 0] if C == 0 else blocks))
+
+
+def _same(a, b):
+    """Two outputs equal field for field (NaN where both are NaN)."""
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("backend", ["matmul", "pallas"])
+def test_flagship_graph_equals_eager(dev, backend):
+    """FlagshipStep replays one graph per call: every output field equal to
+    the eager step on the same inputs, K1 (and under pallas K4 twice) per
+    replay as per eager call, the outputs of call i unchanged by call i+1,
+    and a new batch size captures a second graph."""
+    from c_ofdm_tpu_torch.models import rx, tx
+    from c_ofdm_tpu_torch.utils import graphs
+    step = FlagshipStep(make_frame_spec(CFG, torch.complex64, device=dev,
+                                        fft_backend=backend))
+    spec = step.bound_spec()
+    rng = np.random.default_rng(10)
+    payloads = [torch.from_numpy(rng.integers(
+        0, 256, (16, CFG.frame_bytes), dtype=np.uint8)).to(dev)
+        for _ in range(3)]
+
+    def eager(p):
+        return rx.receive_batch(spec, tx.transmit(spec, p))
+
+    before = graphs.launch_counts()
+    want = [eager(p) for p in payloads]
+    per_eager = {k: v - before.get(k, 0)
+                 for k, v in graphs.launch_counts().items()}
+    got = [step(p) for p in payloads]          # first call captures
+    assert len(step.graphs.graphs) == 1
+    mid = graphs.launch_counts()
+    again = step(payloads[0])
+    per_replay = {k: v - mid.get(k, 0)
+                  for k, v in graphs.launch_counts().items()}
+    torch.cuda.synchronize()
+    assert {k: 3 * v for k, v in per_replay.items() if v} == \
+        {k: v for k, v in per_eager.items() if v}
+    assert extract.extract_windows.launches - mid[
+        (extract.extract_windows, "launches", None)] == 1
+    assert dft.dft.launches - mid[(dft.dft, "launches", None)] == (
+        2 if backend == "pallas" else 0)
+    for w, g in zip(want, got):
+        _same(w[0], g[0])
+        _same(w[1], g[1])
+    _same(got[0][0], again[0])
+    for p, (res, _) in zip(payloads, got):        # call i kept its outputs
+        assert torch.equal(res.mac_bytes, p)
+    step(payloads[1][:8])
+    assert len(step.graphs.graphs) == 2
+    step.to(dev)
+    assert not step.graphs.graphs
+
+
+@pytest.mark.parametrize("C", [0, 8])
+def test_streaming_graph_equals_eager(dev, C):
+    """StreamingReceiver.feed replays one graph per buffer, the state
+    carried in the module's buffers: every output and state field equal to
+    eager process_buffer over the same buffers, the outputs of buffer i
+    unchanged after buffer i+1, K2 (C = 0) or K3 (C = 8) twice per replay."""
+    from c_ofdm_tpu_torch.utils import graphs
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    blocks = _stream_blocks(C).to(dev)
+    state = streaming.init_state(spec, channels=C)
+    want = []
+    for b in blocks:
+        state, out = streaming.process_buffer(spec, state, b)
+        want.append(out)
+    rxr = streaming.StreamingReceiver(spec, channels=C)
+    fn = extract.extract_windows_multi if C else extract.extract_windows_single
+    got, per = [], []
+    for b in blocks:
+        n0 = fn.launches
+        got.append(rxr.feed(b))
+        per.append(fn.launches - n0)
+    torch.cuda.synchronize()
+    assert per == [2] * len(blocks) and len(rxr.graphs.graphs) == 1
+    for w, g in zip(want, got):
+        _same(w, g)
+    _same(state, rxr.state)
+    assert int(sum(o.num_found.sum() for o in got)) > 0
+    assert rxr.graphs.graphs[next(iter(rxr.graphs.graphs))].delta
+
+
+@pytest.mark.parametrize("how", ["setter", "load_state"])
+def test_streaming_state_after_capture(dev, how):
+    """After capture, setting the state (or loading a checkpoint into it)
+    copies into the captured buffers: the receiver carries on as an
+    uninterrupted run; a state of another shape rebinds and recaptures."""
+    import io
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    blocks = _stream_blocks(8).to(dev)
+    full = streaming.StreamingReceiver(spec, channels=8)
+    outs = [full.feed(b) for b in blocks]
+    rxr = streaming.StreamingReceiver(spec, channels=8)
+    rxr.feed(blocks[0])
+    rxr.feed(blocks[2])                       # a wrong buffer: state diverges
+    first = streaming.StreamingReceiver(spec, channels=8)
+    first.feed(blocks[0])
+    if how == "setter":
+        rxr.state = first.state
+    else:
+        f = io.BytesIO()
+        streaming.save_state(f, first.state)
+        f.seek(0)
+        rxr.state = streaming.load_state(f, device=dev)
+    graph = rxr.graphs.graphs
+    assert len(graph) == 1
+    _same(rxr.feed(blocks[1]), outs[1])
+    _same(rxr.feed(blocks[2]), outs[2])
+    rxr.state = streaming.init_state(spec, channels=4)
+    assert not rxr.graphs.graphs
+    rxr.feed(blocks[0][:4])
+    assert len(rxr.graphs.graphs) == 1
+
+
+def test_capture_refuses_a_host_sync_and_runs_nothing_eager(dev):
+    """A step that reads a value back (``.item()``) raises at capture with
+    the key in the message; no graph is kept and no result returned."""
+    from c_ofdm_tpu_torch.utils import graphs
+    call = graphs.CapturedCall("item-step")
+    x = torch.ones(16, device=dev)
+
+    def step(t):
+        return t * (t.sum().item() + 1.0)
+
+    with pytest.raises(RuntimeError, match="capture failed.*item-key"):
+        call(step, (x,), static="item-key")
+    assert not call.graphs
+    torch.cuda.synchronize()
+    y = graphs.jit(lambda t: t * 2, static_argnums=())(x)   # the card works
+    assert torch.equal(y, x * 2)
+
+
+def test_replay_survives_evicted_constants(dev):
+    """A graph holds the cached constants its capture read (K4's twiddles,
+    the DFT and CRC tables): after every cache is cleared and the freed
+    memory is overwritten, a replay still equals the eager step."""
+    from c_ofdm_tpu_torch.models import rx, tx
+    from c_ofdm_tpu_torch.ops import modulation
+    step = FlagshipStep(make_frame_spec(CFG, torch.complex64, device=dev,
+                                        fft_backend="pallas"))
+    payload = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 256, (8, CFG.frame_bytes), dtype=np.uint8)).to(dev)
+    spec = step.bound_spec()
+    want = rx.receive_batch(spec, tx.transmit(spec, payload))
+    step(payload)
+    (g,) = step.graphs.graphs.values()
+    assert any(isinstance(t, torch.Tensor) and t.dtype == torch.complex64
+               and t.shape == (CFG.fft_size,) for t in g.held)   # twiddles
+    for cache in (dft.fft_twiddles, dft.dft_planes, fft._full_basis,
+                  fft._ct_constants, modulation._bpsk_table,
+                  modulation._llr_tables, tmac._crc16_affine):
+        cache.cache_clear()
+    torch.cuda.synchronize()
+    junk = [torch.full((1 << k,), float("nan"), device=dev)
+            for k in range(8, 22, 2) for _ in range(32)]
+    got = step(payload)
+    torch.cuda.synchronize()
+    del junk
+    _same(want[0], got[0])
+    _same(want[1], got[1])
+    assert torch.equal(got[0].mac_bytes, payload)
+
+
+def test_launch_counters_advance_on_replay(dev):
+    """Each replay adds what one call launches; warm-up and capture add
+    nothing."""
+    from c_ofdm_tpu_torch.models import rx, tx
+    spec = make_frame_spec(CFG, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    payload = torch.zeros((4, CFG.frame_bytes), dtype=torch.uint8, device=dev)
+    k1, k4 = extract.extract_windows.launches, dft.dft.radix_launches
+    frames = tx.transmit_jit(spec, payload)          # capture + 1 replay
+    assert (extract.extract_windows.launches, dft.dft.radix_launches) == (
+        k1, k4 + 1)
+    for i in range(3):
+        res, s = rx.receive_batch_jit(spec, frames)
+    torch.cuda.synchronize()
+    assert (extract.extract_windows.launches, dft.dft.radix_launches) == (
+        k1 + 3, k4 + 4)
+    assert torch.equal(res.mac_bytes, payload) and bool(s.found.all())
+    assert len(rx.receive_batch_jit.graphs.graphs) >= 1
+
+
+@pytest.mark.parametrize("mode", ["gated", "dense"])
+def test_streaming_graph_per_block_layout(dev, mode):
+    """Complex, interleaved float32 and int16 blocks each capture their own
+    graph (gated and dense sync; dense walks hits in a loop of device ops
+    with no host sync), every output equal to the eager run."""
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    z = _stream_blocks(0, S=2).numpy()
+    planes = np.stack([z.real, z.imag], -1) * 200.0
+    layouts = [torch.from_numpy(z).to(dev),
+               torch.from_numpy(planes.astype(np.float32)).to(dev),
+               torch.from_numpy(planes.astype(np.int16)).to(dev)]
+    rxr = streaming.StreamingReceiver(spec, sync_mode=mode)
+    for blocks in layouts:
+        rxr.state = streaming.init_state(spec)
+        state = streaming.init_state(spec)
+        for b in blocks:
+            state, want = streaming.process_buffer(spec, state, b,
+                                                   sync_mode=mode)
+            _same(want, rxr.feed(b))
+        _same(state, rxr.state)
+    assert len(rxr.graphs.graphs) == 3
