@@ -14,7 +14,8 @@ want the mesh-wide result back (the tests and ``chip_smoke.py``):
 ``receive_rank`` (the sharded bulk receiver) and ``stream_rank`` (the
 channel-sharded stream).  Each cuts its rank's part with ``ingest``, runs
 the path with the port's kernel launch counts set to 0, and returns the
-gathered view as numpy arrays with the rank's counts.
+gathered view as numpy arrays with the rank's counts and, on the card, the
+CUDA graphs its captured calls hold.
 """
 
 from __future__ import annotations
@@ -144,6 +145,16 @@ def _zero_launch_counts() -> None:
         f.launches = 0
 
 
+def _graphs_of(call) -> list:
+    """Each graph of a captured call: its static key without the spec, its
+    input shapes, its pool MiB and its capture seconds."""
+    from ..models.frame import FrameSpec
+    return [{"static": [s for s in static if not isinstance(s, FrameSpec)],
+             "shapes": [shape for shape, _, _ in tensors],
+             "pool_mib": g.pool_bytes / 2**20, "capture_s": g.capture_s}
+            for (static, tensors), g in call.graphs.items()]
+
+
 def _spec(cfg, dtype, fft_backend, device):
     from ..models.frame import make_frame_spec
     return make_frame_spec(cfg, dtype, device=device, fft_backend=fft_backend)
@@ -154,7 +165,8 @@ def receive_rank(device, cfg, dtype, fft_backend, captures, n_channel,
     """Target: the sharded bulk receiver on this rank's block of the global
     numpy ``captures`` [C, total_len] over a {n_channel, n_time} mesh of the
     world.  Returns the rank's coordinates, its block, the gathered
-    [C, n_time, max_frames, ...] output and the rank's launch counts."""
+    [C, n_time, max_frames, ...] output, the rank's launch counts and its
+    graphs (``_graphs_of``)."""
     from .ingest import capture_sharding, make_global_capture
     from .mesh import make_modem_mesh
     from .sharded import gather_outputs, make_sharded_receiver
@@ -170,7 +182,8 @@ def receive_rank(device, cfg, dtype, fft_backend, captures, n_channel,
         torch.cuda.synchronize(device)
     launches = _launch_counts()
     return {"coords": (mesh.c, mesh.t), "block": block.cpu().numpy(),
-            "out": _numpy(gather_outputs(mesh, out)), "launches": launches}
+            "out": _numpy(gather_outputs(mesh, out)), "launches": launches,
+            "graphs": _graphs_of(recv.graphs)}
 
 
 def stream_rank(device, cfg, dtype, fft_backend, blocks, n_channel, n_time,
@@ -178,8 +191,8 @@ def stream_rank(device, cfg, dtype, fft_backend, blocks, n_channel, n_time,
     """Target: the channel-sharded stream over the global numpy ``blocks``
     [S, C, n], each rank feeding its channels' S buffers from the state
     ``make_global_stream_state`` places.  Returns every buffer's gathered
-    [C, ...] output, the gathered final state and the rank's launch
-    counts."""
+    [C, ...] output, the gathered final state, the rank's launch counts
+    and its graphs (``_graphs_of``)."""
     from ..models import streaming
     from .ingest import (channel_sharding, make_global_channel_array,
                          make_global_stream_state)
@@ -205,4 +218,4 @@ def stream_rank(device, cfg, dtype, fft_backend, blocks, n_channel, n_time,
     launches = _launch_counts()
     return {"outs": [_numpy(gather_channels(mesh, o)) for o in outs],
             "state": _numpy(gather_channels(mesh, state)),
-            "launches": launches}
+            "launches": launches, "graphs": _graphs_of(step.graphs)}

@@ -15,9 +15,17 @@ takes host tensors (a gloo group with data on the card stages every
 transfer through host memory, ``ModemMesh.staged``).  Neither has a complex
 or (NCCL) a bool type, so complex tensors travel as ``view_as_real`` reals
 and bool ones as uint8.
+
+The JAX package compiles both sharded steps (``jax.jit``); here, on CUDA
+tensors, each is one CUDA-graph replay per call (``utils/graphs.py``).  The
+receiver's halo exchange stays outside its graph: a gloo transfer goes
+through host memory, which a capture refuses, and one card runs only an
+NCCL world of one, which sends nothing.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -25,6 +33,7 @@ import torch.distributed as dist
 from ..models import rx as rxm
 from ..models import streaming
 from ..models.frame import FrameSpec
+from ..utils import graphs
 from .mesh import ModemMesh
 
 
@@ -120,6 +129,25 @@ def _local_receive(spec: FrameSpec, block: torch.Tensor, halo: torch.Tensor,
                                valid.sum(-1).to(torch.int32), res.cfo)
 
 
+def _shard_body(spec: FrameSpec, halo_valid: bool, max_frames: int,
+                sync_mode: str, block: torch.Tensor, halo: torch.Tensor):
+    """``_local_receive`` in the JAX per-shard layout [ch_local, 1, ...]."""
+    out = _local_receive(spec, block, halo, halo_valid, max_frames, sync_mode)
+    return streaming.StreamOut(*(x[:, None] for x in out))
+
+
+def replay_local(call: graphs.CapturedCall, spec: FrameSpec,
+                 block: torch.Tensor, halo: torch.Tensor, halo_valid: bool,
+                 max_frames: int, sync_mode: str = "gated"):
+    """``_shard_body`` through ``call``: on CUDA tensors one replay of the
+    graph keyed by (spec, halo_valid, max_frames, sync_mode) and the
+    shapes of ``block`` and ``halo``, captured on its first call; on CPU
+    tensors the body itself."""
+    static = (spec, halo_valid, max_frames, sync_mode)
+    return call(functools.partial(_shard_body, *static), (block, halo),
+                static=static)
+
+
 def make_sharded_receiver(spec: FrameSpec, mesh: ModemMesh,
                           max_frames_per_block: int,
                           sync_mode: str = "gated"):
@@ -130,8 +158,14 @@ def make_sharded_receiver(spec: FrameSpec, mesh: ModemMesh,
     per-shard layout [ch_local, 1, max_frames, ...] (positions are
     block-local; ``valid`` masks ownership).  ``gather_outputs`` assembles
     the global [C, n_time, ...] view.  ``sync_mode`` as in
-    ``streaming.process_buffer``: "gated" (production) or "dense"."""
+    ``streaming.process_buffer``: "gated" (production) or "dense".
+
+    On the card the halo exchange runs eagerly and the rest of the call is
+    one CUDA-graph replay (``replay_local``), block and halo copied into
+    the graph's static inputs; ``receive.graphs`` (a ``CapturedCall``)
+    holds the graphs.  On CPU tensors the call runs eagerly."""
     frame_len = spec.cfg.frame_len
+    call = graphs.CapturedCall("make_sharded_receiver")
 
     def receive(local: torch.Tensor) -> streaming.StreamOut:
         if local.dim() != 2 or local.shape[-1] < frame_len:
@@ -140,10 +174,10 @@ def make_sharded_receiver(spec: FrameSpec, mesh: ModemMesh,
                              f"{tuple(local.shape)}")
         local = local.to(spec.dtype)
         halo, halo_valid = exchange_halo(mesh, local[:, :frame_len])
-        out = _local_receive(spec, local, halo, halo_valid,
-                             max_frames_per_block, sync_mode)
-        return streaming.StreamOut(*(x[:, None] for x in out))
+        return replay_local(call, spec, local, halo, halo_valid,
+                            max_frames_per_block, sync_mode)
 
+    receive.graphs = call
     return receive
 
 
@@ -183,13 +217,18 @@ def make_sharded_streaming(spec: FrameSpec, mesh: ModemMesh, max_frames: int,
     sequence, so only the channel axis shards and no collective runs per
     buffer.  Returns ``step(state, block) -> (state, StreamOut)`` on the
     rank's [ch_local, ...] state and block (``ingest.make_global_stream_state``
-    and ``make_global_channel_array`` place them)."""
+    and ``make_global_channel_array`` place them): on the card one
+    CUDA-graph replay per buffer, the state copied in and the new state
+    returned as fresh tensors, as ``jax.jit`` returns new arrays;
+    ``step.graphs`` holds the graphs.  On CPU tensors the step runs
+    eagerly."""
     del mesh    # nothing crosses ranks; the mesh fixes where the data lies
+    jitted = graphs.jit(streaming.process_buffer, static_argnums=(0, 3, 4))
 
     def step(state: streaming.StreamState, block: torch.Tensor):
-        return streaming.process_buffer(spec, state, block, max_frames,
-                                        sync_mode)
+        return jitted(spec, state, block, max_frames, sync_mode)
 
+    step.graphs = jitted.graphs
     return step
 
 

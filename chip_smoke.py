@@ -126,17 +126,24 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               30 dB, random gaps, amplitudes 40 x 0.6-1.0, a near-gate
               spurious burst per channel): every frame once at start +
               t2sin_size, bytes exact, CRC valid, equal to the CPU run, K3
-              twice and K1, K2, K4 never; time per call (CUDA events) and
-              device time; once more under pallas, K4 once; (b) 4 gloo
-              ranks all on cuda:0 (parallel/launch.py), mesh {channel: 2,
-              time: 2}, the halo staged through host memory: the dryrun
-              capture with a frame straddling the time boundary and one
-              ending at the capture end per channel, equal to the truth and
-              to process_buffer over the whole capture; (c) the
-              channel-sharded stream, 2 gloo ranks on cuda:0: phase 22's
-              C = 8 rings, S = 4, equal to StreamingReceiver(channels=8);
-              (d) scaling-bench --devices 1 --channels 8 --frames-per-block
-              40 in-process, then --devices 2 raising the mesh's ValueError
+              twice and K1, K2, K4 never, the first call captured as a CUDA
+              graph (the halo exchange eager beside it); the graph against
+              the same receiver run eagerly (as phase 25 holds its cells),
+              eager and graph timed in turns, launches per replay named by
+              the profiler, capture s and pool MiB; once more under pallas,
+              K4 once, and under the dense sync fallback (K3 once: the
+              frames), graph against eager only; (b) 4 gloo ranks all on
+              cuda:0 (parallel/launch.py), mesh {channel: 2, time: 2}, the
+              halo staged through host memory: the dryrun capture with a
+              frame straddling the time boundary and one ending at the
+              capture end per channel, equal to the truth and to
+              process_buffer over the whole capture, each rank replaying
+              its own graph (its halo_valid, pool MiB); (c) the
+              channel-sharded stream, 2 gloo ranks on cuda:0, each a graph
+              replay per buffer: phase 22's C = 8 rings, S = 4, equal to
+              StreamingReceiver(channels=8); (d) scaling-bench --devices 1
+              --channels 8 --frames-per-block 40 in-process (a replay per
+              timed call), then --devices 2 raising the mesh's ValueError
 
  25 compiled  the JAX package's compiled entry points as CUDA-graph
               replays (utils/graphs.py), each against the same code run
@@ -147,7 +154,8 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               StreamingReceiver on phase 8's rings, S = 4, gated, at C = 1
               (K2 twice), 8 and 64 (K3 twice), and C = 8 under pallas (K3
               twice + K4); the rx CLI on phase 23's 20-buffer stream, full
-              drain, --drain metadata and --chunk 4.  Per cell: bytes,
+              drain, --drain metadata and --chunk 4; the sharded receiver's
+              three cells come from phase 24 (a).  Per cell: bytes,
               positions, valid, found, num_found and the state's
               next_min_pos and frames_seen exactly equal, the float fields'
               max difference printed; K1-K4 launches per replay equal to
@@ -222,14 +230,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, tries=3):
+def device_ms(fn, reps, tries=5):
     """(device milliseconds per call, profiler events) over reps calls of
     fn(i): the sum of the CUDA kernel times torch.profiler records.  A
-    session that records no device time (seen once right after a long
-    profiled window) is repeated, up to ``tries`` sessions."""
+    session that records no device time (seen right after a long profiled
+    window, and three times in a row at phase 19's first K2 case) is
+    repeated after a pause that grows with each try, up to ``tries``
+    sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for attempt in range(tries):
+        time.sleep(0.5 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -242,7 +253,8 @@ def device_ms(fn, reps, tries=3):
         if us > 0:
             return us / 1e3 / reps, events
     raise RuntimeError(f"chip_smoke: torch.profiler recorded no device time "
-                       f"in {tries} sessions")
+                       f"in {tries} sessions (last: {len(events)} events, "
+                       f"{sorted(e.key for e in events)[:12]})")
 
 
 def phase_device():
@@ -1995,6 +2007,13 @@ def _stream_out(d):
     return StreamOut(**{k: torch.from_numpy(v) for k, v in d.items()})
 
 
+def rank_graphs(ranks, halo):
+    """Each rank's graphs as (halo_valid if ``halo``, pool MiB, capture s)
+    (``launch._graphs_of``)."""
+    return [(*g["static"][:halo], round(g["pool_mib"], 1),
+             round(g["capture_s"], 3)) for res in ranks for g in res["graphs"]]
+
+
 def run_parallel(dev, card):
     """Phase 24: parallel/ on the card.  (a) a world of one in this process
     (NCCL group of size 1): the sharded receiver at C = 8 x 240 640, every
@@ -2059,20 +2078,15 @@ def run_parallel(dev, card):
                                     block_len, "parallel (a)")
         same_outputs([out], [cpu_out], "parallel (a) card against CPU",
                      atol=1e-4)
-        ms = cuda_ms(lambda i: recv(block), 20)
-        dev_ms, _ = device_ms(lambda i: recv(block), 10)
         say("parallel", f"(a) world of one, NCCL group of 1 on {dev}: "
             f"sharded receiver {{channel:1, time:1}}, C={C} x {block_len} "
             f"(dryrun capture: CFO 1e-4, 30 dB, random gaps, amplitudes "
             f"40 x 0.6-1.0, a near-gate spurious burst per channel), "
-            f"max_frames_per_block {max_pb}: {n_frames} planted frames "
-            f"decoded exactly once at start + t2sin_size, bytes exact, CRC "
-            f"valid, no spurious decode; every field equal to the CPU run; "
-            f"(K1, K2, K3, K4) launches {counts}")
-        say("parallel", f"(a) on {card}: {ms:.4f} ms per call (CUDA events, "
-            f"20 calls), device {dev_ms:.4f} ms (torch.profiler), "
-            f"{C * block_len / (ms * 1e-3):.6g} samples/s, idle "
-            f"{1 - dev_ms / ms:.1%}")
+            f"max_frames_per_block {max_pb}, the first call captured: "
+            f"{n_frames} planted frames decoded exactly once at start + "
+            f"t2sin_size, bytes exact, CRC valid, no spurious decode; every "
+            f"field equal to the CPU run; (K1, K2, K3, K4) launches {counts}")
+        cells = [sharded_cell(f"sharded C={C}", recv, block, C * block_len)]
         # pallas: K4 once per call (demod_sig's one bins_transform of the
         # C x 41 x 9 symbols), K3 twice
         recv_p = sharded.make_sharded_receiver(
@@ -2092,6 +2106,15 @@ def run_parallel(dev, card):
         say("parallel", f"(a) under fft_backend='pallas': the same "
             f"{n_frames} frames exact; (radix K4, dense K4, K3) launches "
             f"{got}")
+        cells.append(sharded_cell(f"sharded C={C} pallas", recv_p, block,
+                                  C * block_len))
+        # the dense fallback: _hits_dense walks the rank's C channels one
+        # extract_hits each, so its kernels per call grow with C
+        recv_d = sharded.make_sharded_receiver(spec, m, max_pb, "dense")
+        cells.append(sharded_cell(f"sharded C={C} dense", recv_d, block,
+                                  C * block_len))
+        for c in cells:
+            c["phase_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
 
@@ -2129,6 +2152,9 @@ def run_parallel(dev, card):
             check(np.array_equal(v, ranks[0]["out"][k], equal_nan=True),
                   f"parallel (b): rank {r}'s gathered {k} differs")
         k3_launches += res["launches"]["K3"]
+        check([g["static"] for g in res["graphs"]]
+              == [[res["coords"][1] < nt - 1, max_pb, "gated"]],
+              f"parallel (b): rank {r}'s graphs {res['graphs']}")
     out = ranks[0]["out"]
     n_frames, n_straddle = check_sharded(spec, mac, out, truth, payloads,
                                          block_len, "parallel (b)")
@@ -2156,7 +2182,8 @@ def run_parallel(dev, card):
         f"exact (incl. {n_straddle} halo-straddling, and each channel's "
         f"last frame ending at the capture end), every rank's gathered view "
         f"equal, equal to process_buffer over the whole capture on the "
-        f"card; K3 launches per rank 2")
+        f"card; K3 launches per rank 2; each rank one graph (halo_valid, "
+        f"pool MiB, capture s): {rank_graphs(ranks, True)}")
 
     # ---- (c) the channel-sharded stream against the unsharded receiver
     C = STATE_C
@@ -2173,6 +2200,8 @@ def run_parallel(dev, card):
         for k, v in state.items():
             check(np.array_equal(res["state"][k], v),
                   f"parallel (c): rank {r}'s final state {k} differs")
+        check(len(res["graphs"]) == 1, f"parallel (c): rank {r}'s graphs "
+              f"{res['graphs']}")
     n_frames = check_truth(spec, [_stream_out(o) for o in ranks_c[0]["outs"]],
                            s_truth, C)
     say("parallel", f"(c) channel-sharded stream, 2 gloo ranks on {dev}, "
@@ -2180,8 +2209,9 @@ def run_parallel(dev, card):
         f"S={S} buffers from make_global_stream_state: {n_frames} planted "
         f"frames exact; every buffer's gathered output and the final state "
         f"equal to StreamingReceiver(channels={C}) on the card; K3 launches "
-        f"per rank {2 * S}; the worlds of (b) and (c) spawned and run "
-        f"together in {secs:.1f} s")
+        f"per rank {2 * S}; one graph per rank (pool MiB, capture s): "
+        f"{rank_graphs(ranks_c, False)}; the worlds of (b) and (c) spawned "
+        f"and run together in {secs:.1f} s")
 
     # ---- (d) the app
     err = io.StringIO()
@@ -2207,7 +2237,7 @@ def run_parallel(dev, card):
             check(False, "parallel (d): --devices 2 on one card did not "
                   "raise")
     say("parallel", f"phase took {time.perf_counter() - t0:.1f} s")
-    return k3_launches
+    return k3_launches, cells
 
 
 # ---- 25: the compiled paths (utils/graphs.py: one CUDA-graph replay per
@@ -2279,7 +2309,7 @@ def max_diff(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
-def compiled_timing(tag, fns, reps=8, prof_reps=4):
+def compiled_timing(tag, fns, reps=8, prof_reps=4, phase="compiled"):
     """Eager and graph in turns (eager, graph, graph, eager): per call the
     median wall by CUDA events around each call, the device time (kernel
     sum, torch.profiler) and the idle share.  ``fns`` maps "eager" and
@@ -2301,7 +2331,7 @@ def compiled_timing(tag, fns, reps=8, prof_reps=4):
     out = {k: (statistics.median(wall[k]), statistics.median(devt[k]))
            for k in fns}
     (we, de), (wg, dg) = out["eager"], out["graph"]
-    say("compiled", f"{tag}: eager {we:.4f} ms per call (device {de:.4f} ms, "
+    say(phase, f"{tag}: eager {we:.4f} ms per call (device {de:.4f} ms, "
         f"idle {1 - de / we:.1%}); graph {wg:.4f} ms per call (device "
         f"{dg:.4f} ms, idle {1 - dg / wg:.1%}); wall graph/eager "
         f"{wg / we:.3f}, device graph/eager {dg / de:.3f} (medians of "
@@ -2325,13 +2355,13 @@ def check_replay_counts(tag, eager_fn, graph_fn, events, reps):
     return replay, seen
 
 
-def graph_record(tag, call):
+def graph_record(tag, call, phase="compiled"):
     """Print and return what the captured call's graphs cost."""
     from c_ofdm_tpu_torch.utils import graphs
     recs = list(call.graphs.values())
-    check(recs, f"compiled {tag}: no graph was captured")
+    check(recs, f"{phase} {tag}: no graph was captured")
     for g in recs:
-        say("compiled", f"{tag}: graph captured in {g.capture_s:.3f} s "
+        say(phase, f"{tag}: graph captured in {g.capture_s:.3f} s "
             f"(warm-up {graphs.WARMUP} eager runs + capture), pool "
             f"{g.pool_bytes / 2**20:.1f} MiB; per call {len(g.static_in)} "
             f"input copy and {g.clone_launches} output clone launches "
@@ -2439,6 +2469,47 @@ def stream_cell(dev, tag, spec, blocks, C):
             "pool_mib": recs[0].pool_bytes / 2**20}
 
 
+def sharded_cell(tag, recv, block, samples):
+    """Phase 24 (a)'s receiver (its NCCL world of one): the graph against
+    the same receiver run eagerly on the same block, eager and graph timed
+    in turns, launches per replay against per eager call.  The halo
+    exchange runs eagerly on both sides."""
+    from torch.autograd import DeviceType
+    with eager_calls():
+        want = recv(block)
+    got = recv(block)
+    torch.cuda.synchronize()
+    recs = graph_record(tag, recv.graphs, phase="parallel")
+    check(len(recs) == 1, f"parallel {tag}: {len(recs)} graphs, want 1")
+    for name in ("positions", "valid", "num_found"):
+        check(torch.equal(getattr(want, name), getattr(got, name)),
+              f"parallel {tag}: {name} graph != eager")
+    v = want.valid
+    check(torch.equal(want.mac_bytes[v], got.mac_bytes[v]),
+          f"parallel {tag}: bytes graph != eager")
+    worst = {n: max_diff(getattr(want, n)[v], getattr(got, n)[v])
+             for n in ("diag", "cfo")}
+    say("parallel", f"{tag}: graph = eager: positions, valid, num_found, the "
+        f"valid slots' bytes exact (all slots' bytes equal: "
+        f"{torch.equal(want.mac_bytes, got.mac_bytes)}); max abs diff diag "
+        f"{worst['diag']:.3g}, cfo {worst['cfo']:.3g}")
+    fns = {m: (lambda i: recv(block)) for m in ("eager", "graph")}
+    times, events = compiled_timing(tag, fns, phase="parallel")
+    replay, seen = check_replay_counts(tag, lambda: recv(block),
+                                       lambda: recv(block), events, 4)
+    ops = sum(e.count for e in events if e.device_type == DeviceType.CUDA) / 4
+    wall = times["graph"][0]
+    say("parallel", f"{tag}: launches per replay = per eager call "
+        f"{count_names(replay)}; profiler per replay {seen}, {ops:g} device "
+        f"operations in all (kernels, copies, the halo's zero fill); "
+        f"{int(got.num_found.sum())} frames; "
+        f"{samples / (wall * 1e-3):.6g} samples/s (graph wall)")
+    return {"tag": tag, "times": times, "launches": count_names(replay),
+            "device_ops": ops, "worst": worst,
+            "capture_s": recs[0].capture_s,
+            "pool_mib": recs[0].pool_bytes / 2**20}
+
+
 def rx_app_cell(dev, card):
     """The rx CLI stream of phase 23 (a tx-written file of 20 stock
     buffers, 738 frames): the full drain, --drain metadata and --chunk 4,
@@ -2541,10 +2612,12 @@ def rx_app_cell(dev, card):
     return cells
 
 
-def run_compiled(dev, card, stream_data):
+def run_compiled(dev, card, stream_data, sharded_cells):
     """Phase 25: the compiled paths on the card, each graph against the same
     code run eagerly; the launch counts of K1-K4 set to 0 at the start and
-    read at the end (eager runs excluded)."""
+    read at the end (eager runs excluded).  The sharded receiver's cells
+    were measured in phase 24 (a), inside its NCCL world, and join this
+    phase's JSON line."""
     from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
     from c_ofdm_tpu_torch.ops import dft, extract
     t0 = time.perf_counter()
@@ -2581,7 +2654,7 @@ def run_compiled(dev, card, stream_data):
     check(all(counts.values()), f"compiled: a kernel never replayed: {counts}")
     say("compiled", f"replay launches in this phase {counts} (K4 radix "
         f"{dft.dft.radix_launches}, dense {dft.dft.dense_launches})")
-    print(json.dumps({"compiled": cells}), flush=True)
+    print(json.dumps({"compiled": cells + sharded_cells}), flush=True)
     say("compiled", f"phase took {time.perf_counter() - t0:.1f} s")
     return counts
 
@@ -2699,10 +2772,10 @@ def main():
     run_apps(dev, card)
 
     # ---- 24: parallel/
-    k3_sharded = run_parallel(dev, card)
+    k3_sharded, sharded_cells = run_parallel(dev, card)
 
     # ---- 25: the compiled paths (CUDA-graph replays)
-    replays = run_compiled(dev, card, stream["data"])
+    replays = run_compiled(dev, card, stream["data"], sharded_cells)
     say("compiled", f"all phases {time.perf_counter() - t_start:.1f} s")
 
     src = "c_ofdm_tpu_torch/csrc/extract_windows.cu"

@@ -1,12 +1,16 @@
 """The port on the card: K1, K2, K3 and K4 against their plain versions,
 the flagship step (matmul and pallas backends), one gated streaming buffer,
-and the MAC codec and channel simulator against their CPU runs.
+the MAC codec and channel simulator against their CPU runs, and the
+captured calls (CUDA-graph replays) against their eager runs, the sharded
+receiver and the channel-sharded stream among them.
 
 Every test here needs CUDA and skips without it.  This file imports no jax,
 so it also runs where jax is not installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -905,3 +909,122 @@ def test_streaming_graph_per_block_layout(dev, mode):
             _same(want, rxr.feed(b))
         _same(state, rxr.state)
     assert len(rxr.graphs.graphs) == 3
+
+
+# ---- the sharded steps captured (parallel/sharded.py)
+
+@contextlib.contextmanager
+def _no_sync():
+    """Any host synchronisation inside the block raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _sharded_inputs(dev, seed=12):
+    """A block [2, 8 frame lengths] and its right neighbour's head [2,
+    frame_len] on the card, with frames at the block start, inside, one
+    straddling into the halo and one starting on the halo's first sample
+    (the neighbour's); and the planted payloads of the block's frames."""
+    from c_ofdm_tpu_torch.models import tx
+    tx_spec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    rng = np.random.default_rng(seed)
+    n = 8 * CFG.frame_len
+    payload = rng.integers(0, 256, (6, CFG.frame_bytes), dtype=np.uint8)
+    frames = tx.transmit(tx_spec, torch.from_numpy(payload)).numpy()
+    caps = 0.05 * (rng.standard_normal((2, n + CFG.frame_len))
+                   + 1j * rng.standard_normal((2, n + CFG.frame_len)))
+    for i, (c, s) in enumerate([(0, 0), (0, 20_000),
+                                (0, n - CFG.frame_len // 3), (1, 333),
+                                (1, n - CFG.frame_len - 5), (1, n)]):
+        end = min(s + CFG.frame_len, caps.shape[1])
+        caps[c, s:end] += 60.0 * frames[i, :end - s]
+    caps = torch.from_numpy(caps.astype(np.complex64)).to(dev)
+    return caps[:, :n].contiguous(), caps[:, n:].contiguous(), payload
+
+
+@pytest.mark.parametrize("sync_mode", ["gated", "dense"])
+def test_sharded_receiver_graph_equals_eager(dev, sync_mode):
+    """The world-of-one receiver replays one graph per call (halo_valid
+    False: no right neighbour), every field equal to the eager body; the
+    halo_valid True graph, driven through ``replay_local`` with a real
+    halo, equals its eager body too and decodes the straddling frame.  One
+    graph per key; later calls capture nothing and make no host sync; K3
+    launches per replay as per eager call (gated: regions and frames;
+    dense: frames)."""
+    from c_ofdm_tpu_torch.parallel import mesh, sharded
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    block, halo, payload = _sharded_inputs(dev)
+    K = 6
+    recv = sharded.make_sharded_receiver(
+        spec, mesh.make_modem_mesh(1, 1, device=dev), K, sync_mode)
+    k3 = extract.extract_windows_multi
+    want = {}
+    for valid in (False, True):
+        n0 = k3.launches
+        want[valid] = sharded._shard_body(
+            spec, valid, K, sync_mode, block,
+            halo if valid else torch.zeros_like(halo))
+        per_eager = k3.launches - n0
+    assert per_eager == (2 if sync_mode == "gated" else 1)
+    n0 = k3.launches
+    got = recv(block)                           # warm-up, capture, replay
+    torch.cuda.synchronize()
+    assert k3.launches - n0 == per_eager
+    got_true = sharded.replay_local(recv.graphs, spec, block, halo, True, K,
+                                    sync_mode)
+    keys = {key[0][1] for key in recv.graphs.graphs}
+    assert keys == {False, True} and len(recv.graphs.graphs) == 2
+    held = dict(recv.graphs.graphs)
+    n0 = k3.launches
+    with _no_sync():
+        again = recv(block)
+        again_true = sharded.replay_local(recv.graphs, spec, block, halo,
+                                          True, K, sync_mode)
+    torch.cuda.synchronize()
+    assert k3.launches - n0 == 2 * per_eager
+    assert recv.graphs.graphs == held            # nothing captured again
+    for out in (got, again):
+        _same(want[False], out)
+    for out in (got_true, again_true):
+        _same(want[True], out)
+    assert want[True].num_found[:, 0].tolist() == [3, 2]
+    assert want[False].num_found[:, 0].tolist() == [2, 2]
+    v = got_true.valid[:, 0].cpu()
+    np.testing.assert_array_equal(
+        got_true.mac_bytes[:, 0].cpu()[v].numpy(), payload[[0, 1, 2, 3, 4]])
+
+
+def test_sharded_stream_graph_equals_streaming_receiver(dev):
+    """The channel-sharded step in a world of one replays one graph per
+    buffer over S = 4 buffers at C = 8: every output and the final state
+    equal to StreamingReceiver(channels=8).feed, K3 twice per replay, no
+    host sync after capture, and the state a buffer returned unchanged by
+    the next buffer (fresh tensors, as jax.jit returns)."""
+    from c_ofdm_tpu_torch.parallel import mesh, sharded
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    blocks = _stream_blocks(8, S=4).to(dev)
+    rxr = streaming.StreamingReceiver(spec, channels=8)
+    want = [rxr.feed(b) for b in blocks]
+    step = sharded.make_sharded_streaming(
+        spec, mesh.make_modem_mesh(1, 1, device=dev), 0)
+    state = streaming.init_state(spec, channels=8)
+    k3 = extract.extract_windows_multi
+    got, per, states = [], [], []
+    for i, b in enumerate(blocks):
+        n0 = k3.launches
+        with _no_sync() if i else contextlib.nullcontext():
+            state, out = step(state, b)
+        got.append(out)
+        per.append(k3.launches - n0)
+        states.append((state, [t.clone() for t in state]))
+    torch.cuda.synchronize()
+    assert per == [2] * len(blocks) and len(step.graphs.graphs) == 1
+    for w, g in zip(want, got):
+        _same(w, g)
+    _same(rxr.state, state)
+    for st, snap in states:
+        _same(snap, st)
+    assert int(sum(o.num_found.sum() for o in got)) > 0

@@ -3,6 +3,12 @@ package's ``c_ofdm_tpu/parallel`` on the conftest's 8 virtual CPU devices:
 the mesh layout and its errors, ``_local_receive`` (the per-rank body of the
 sharded receiver) in both sync modes with a valid and a zeroed halo, the
 world-of-one receiver with ``ingest``'s placement, and ``global_positions``.
+The captured calls (``make_sharded_receiver``'s ``replay_local`` and
+``make_sharded_streaming``'s jitted step: CUDA graphs on the card) run
+eagerly on CPU tensors, hold their graphs in ``.graphs``, and make no
+tensor from host data after a warm-up call (``test_torch_jit.py``'s guard),
+at the receiver's length block_len + frame_len in both sync modes with a
+valid and a zeroed halo, and over three stream buffers.
 
 Captures are MAC frames through the JAX ``transmit`` at numpy-seeded
 positions, CFO and AWGN (``tests/test_sharded.py``'s ``_build_capture``).
@@ -34,6 +40,9 @@ from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
 from c_ofdm_tpu_torch.mac.mac import Mac
 from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.parallel import ingest, mesh, sharded
+from c_ofdm_tpu_torch.utils import graphs
+
+from test_torch_jit import _no_host_constants
 
 torch.set_num_threads(1)
 
@@ -299,3 +308,120 @@ def test_ingest_in_a_larger_world():
         m, streaming.init_state(_specs("c64")[1], channels=3), 6)
     assert state.carry.shape == (3, CFG.frame_len)
     assert state.frames_seen.shape == (3,)
+
+
+# ---- the captured calls (one CUDA-graph replay per call on the card)
+
+def _same(a, b):
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+
+
+def _local_inputs(halo_valid):
+    cap = _local_capture().astype(np.complex64)
+    block = torch.from_numpy(cap[:, :BLOCK])
+    halo = torch.from_numpy(cap[:, BLOCK:])
+    return block, (halo if halo_valid else torch.zeros_like(halo))
+
+
+@pytest.mark.parametrize("sync_mode", ["gated", "dense"])
+@pytest.mark.parametrize("halo_valid", [True, False])
+def test_local_receive_makes_no_host_constants(sync_mode, halo_valid):
+    """The receiver's captured body at its length block_len + frame_len
+    (two channels) makes no tensor from host data once a first call has
+    filled the caches, as a capture needs; on CPU tensors ``replay_local``
+    is the body itself and keeps no graph."""
+    _, ts = _specs("c64")
+    block, halo = _local_inputs(halo_valid)
+    call = graphs.CapturedCall("test")
+
+    def run():
+        return sharded.replay_local(call, ts, block, halo, halo_valid,
+                                    MAX_FRAMES, sync_mode)
+
+    want = run()
+    with _no_host_constants():
+        got = run()
+    _same(want, got)
+    assert not call.graphs
+    assert got.valid.shape == (2, 1, MAX_FRAMES)
+    _same(want, [x[:, None] for x in sharded._local_receive(
+        ts, block, halo, halo_valid, MAX_FRAMES, sync_mode)])
+    assert got.num_found[:, 0].tolist() == ([3, 2] if halo_valid else [2, 2])
+
+
+def _stream_buffers(ts, S=3):
+    """S consecutive two-channel buffers [S, 2, n] with frames planted
+    across the buffer boundaries."""
+    n = ts.cfg.rx_buf_size * CFG.frame_len
+    rows = [build_capture(4, S * n, [300, n - CFG.frame_len // 2,
+                                     n + 9000, 2 * n + 100], seed=s)[0]
+            for s in (41, 42)]
+    caps = np.stack(rows).astype(np.complex64)
+    return torch.from_numpy(np.ascontiguousarray(
+        caps.reshape(2, S, n).transpose(1, 0, 2)))
+
+
+def test_sharded_streaming_makes_no_host_constants():
+    """Three buffers through the channel-sharded step make no tensor from
+    host data once the first pass has filled the caches; the step equals
+    process_buffer, state included."""
+    ts = make_frame_spec(ModemConfig(rx_buf_size=4), torch.complex64,
+                         device="cpu")
+    step = sharded.make_sharded_streaming(
+        ts, mesh.make_modem_mesh(device="cpu"), 0)
+    blocks = _stream_buffers(ts)
+
+    def run():
+        state, outs = streaming.init_state(ts, channels=2), []
+        for b in blocks:
+            state, out = step(state, b)
+            outs.append(out)
+        return state, outs
+
+    want_state, want = run()
+    with _no_host_constants():
+        state, got = run()
+    ref = streaming.init_state(ts, channels=2)
+    for b, w, g in zip(blocks, want, got):
+        ref, r = streaming.process_buffer(ts, ref, b)
+        _same(w, g)
+        _same(r, g)
+    _same(want_state, state)
+    _same(ref, state)
+    assert state.frames_seen.tolist() == [4, 4]
+    assert not step.graphs.graphs
+
+
+def test_sharded_receiver_holds_its_graphs():
+    """Each receiver holds its own CapturedCall in ``.graphs``; on CPU
+    tensors the call runs eagerly (no graph kept) and equals the body with
+    the world of one's zeroed, invalid halo."""
+    _, ts = _specs("c64")
+    m = mesh.make_modem_mesh(device="cpu")
+    recv = sharded.make_sharded_receiver(ts, m, MAX_FRAMES)
+    other = sharded.make_sharded_receiver(ts, m, MAX_FRAMES)
+    assert isinstance(recv.graphs, graphs.CapturedCall)
+    assert recv.graphs is not other.graphs
+    block, zeros = _local_inputs(False)
+    _same(recv(block), sharded._shard_body(ts, False, MAX_FRAMES, "gated",
+                                           block, zeros))
+    assert not recv.graphs.graphs
+
+
+def test_sharded_streaming_holds_its_graphs():
+    """The stream step holds its jitted step's CapturedCall; on CPU tensors
+    it runs eagerly and returns a new state, leaving the one passed in as
+    it was (the JAX step is functional)."""
+    ts = make_frame_spec(ModemConfig(rx_buf_size=4), torch.complex64,
+                         device="cpu")
+    m = mesh.make_modem_mesh(device="cpu")
+    step = sharded.make_sharded_streaming(ts, m, 0)
+    assert isinstance(step.graphs, graphs.CapturedCall)
+    assert step.graphs is not sharded.make_sharded_streaming(ts, m, 0).graphs
+    state = streaming.init_state(ts, channels=2)
+    before = [t.clone() for t in state]
+    new, _ = step(state, _stream_buffers(ts, S=1)[0])
+    _same(before, state)
+    assert bool(new.carry_valid.all()) and new.frames_seen.tolist() == [1, 1]
+    assert not step.graphs.graphs
