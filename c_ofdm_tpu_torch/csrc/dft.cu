@@ -10,29 +10,34 @@
 // float2, in place, at any row stride (the receiver's CP-stripped symbol
 // view has stride 640); y is written contiguous.
 //
-// Bound at the flagship step's shapes (stock config, B = 256).  The
-// function is a DFT: x read and y written once at 3.35 TB/s, against an
-// FFT's 5·M·n·log2(n) FLOPs at 67 TFLOP/s (the H100 SXM's float32
-// non-tensor rate, NVIDIA data sheet):
-//   TX  [2048, 512], sign +1: 16.8 MB -> 5.0 us;  47 MFLOP -> 0.7 us
-//   RX  [2304, 512], sign -1: 18.9 MB -> 5.6 us;  53 MFLOP -> 0.8 us
-// An FFT does 5·log2(n) / 16 = 2.8 FLOP per byte moved at n = 512, far
-// below the card's float32 ridge of 67e12 / 3.35e12 = 20 FLOP/B, so the
-// bytes bound it and the FLOPs hide under the memory time.  Tensor cores
+// Bound at the flagship step's shapes (B = 256; the stock config, and
+// the 1536-point LTE geometry with CP 108).  The function is a DFT: x read
+// and y written once at 3.35 TB/s, against an FFT's 5·M·n·log2(n) FLOPs
+// at 67 TFLOP/s (the H100 SXM's float32 non-tensor rate, NVIDIA data
+// sheet):
+//   TX  [2048, 512], sign +1:  16.8 MB ->  5.0 us;  47 MFLOP -> 0.7 us
+//   RX  [2304, 512], sign -1:  18.9 MB ->  5.6 us;  53 MFLOP -> 0.8 us
+//   TX  [2048, 1536], sign +1: 50.3 MB -> 15.0 us; 166 MFLOP -> 2.5 us
+//   RX  [2304, 1536], sign -1: 56.6 MB -> 16.9 us; 187 MFLOP -> 2.8 us
+// An FFT does 5·log2(n) / 16 = 2.8 FLOP per byte moved at n = 512 (3.3 at
+// 1536), far below the card's float32 ridge of 67e12 / 3.35e12 = 20
+// FLOP/B, so the bytes bound it and the FLOPs hide under the memory time.
+// The Bluestein route does two m-point FFTs per row (at n = 509, m = 1024:
+// 4.5x an FFT's FLOPs), still under the ridge.  Tensor cores
 // are not used: a product on them would only add work (a dense or
 // Cooley-Tukey GEMM does O(n) or O(sqrt n) FLOPs per point, not O(log n))
 // to a kernel whose arithmetic already costs less than its memory traffic.
 //
-// Two routes, chosen by n alone (ops/dft.py::_route):
+// Four routes, chosen by n alone (ops/dft.py::_route):
 //
-// * radix, n a power of two from 16 to 8192 (every n the pallas paths
-//   use): a Stockham (self-sorting) FFT with each row in shared memory,
-//   fft_kernel<log2 n> below.  n / 8 threads per row, 8 points per thread;
-//   ceil(log2(n) / 3) passes: one of radix 2^(log2 n mod 3, or 3) first,
-//   then radix 8, butterflies in registers.  Thread t always holds the
-//   points t + k·n/8 (k = 0..7): the first pass reads them from x (a warp
-//   reads consecutive addresses, float2 loads, so any 8-byte-aligned row
-//   stride works) and the last pass writes them to y in natural order,
+// * radix, n a power of two from 16 to 8192 (the stock and wideband
+//   geometries): a Stockham (self-sorting) FFT with each row in shared
+//   memory, fft_kernel<log2 n> below.  n / 8 threads per row, 8 points per
+//   thread; ceil(log2(n) / 3) passes: one of radix 2^(log2 n mod 3, or 3)
+//   first, then radix 8, butterflies in registers.  Thread t always holds
+//   the points t + k·n/8 (k = 0..7): the first pass reads them from x (a
+//   warp reads consecutive addresses, float2 loads, so any 8-byte-aligned
+//   row stride works) and the last pass writes them to y in natural order,
 //   times scale, so the ceil(log2 n / 3) - 1 exchanges between passes are
 //   the only shared-memory traffic.  The exchange is in place (read,
 //   barrier, write, barrier) with an XOR swizzle of the block's index
@@ -47,17 +52,53 @@
 //   point r of butterfly j by tw[(j mod Ns) · r · n / (Ns · R)].  The
 //   plain version with the same passes, indices and table is
 //   ops/dft.py::dft_radix_ref.
-// * dense, every other n (n < 16, n > 8192 and sizes that are not powers
-//   of two: ModemConfig allows fft_size = 500): the complex GEMM
-//   dft_kernel below against W as two float32 planes [n, n] (times scale,
-//   built once per (n, sign, scale) by the wrapper).  Its own floor is
-//   8·M·n² FLOPs on the float32 CUDA cores, so it is no route for the
-//   sizes the radix kernel takes.  A block computes a 64 x 64 tile of y
-//   with 256 threads, each holding 4 x 4 complex accumulators; the
-//   contraction runs in chunks of 16 staged in shared memory, each chunk
-//   summed apart and then added to the accumulators (about the plain
-//   version's 4-GEMM accuracy, at 127 registers).  Ragged rows, columns
-//   and chunks are zero-filled on load and masked on store.
+// * mixed, every other 7-smooth n = 2^a·3^b·5^c·7^d from 16 to 8192 (LTE's
+//   1536, ModemConfig's fft_size = 500): mixed_fft_kernel below, the same
+//   Stockham scheme with a plan chosen at run time, not a template per n.
+//   The plan (ops/dft.py::_mixed_radices: 8s, then 4 or 2, then 3s, 5s and
+//   7s; 1536 = 8·8·8·3) comes by value, 4 bits a radix in one 64-bit word.
+//   T = ceil(n / 8) threads per row; pass (R, Ns) runs the n / R
+//   butterflies j = t + b·T, b < ceil(8 / R), the last ones masked, on the
+//   points j + r·n/R, with the radix route's twiddle rule (integral, since
+//   Ns·R divides n) and the radix-3/5/7 butterflies' cos/sin(2πq/R)
+//   computed in double and rounded once.  The twiddles are the radix
+//   route's table, gathered once per (n, sign) into an r-major block per
+//   pass (ops/dft.py::mixed_twiddles), so a warp's loads of point r's
+//   twiddles are contiguous: at n = 1536, ~190 L1 wavefronts per row
+//   where the table's scattered tw[(j mod Ns)·r·n/(Ns·R)] takes ~1360,
+//   more than the 576 of the shared-memory exchanges.  The first pass
+//   reads x and the last writes y (both at consecutive addresses, the
+//   stride-1644 RX view read in place); between passes each butterfly
+//   reads one of the row's two shared-memory buffers and writes the other,
+//   swizzled as above, each row padded to a multiple of 16 points (1536 and
+//   6144: every exchange conflict-free), one barrier per pass.  Rows per
+//   block max(1, 256 / T); 2 x 12 KB per row at n = 1536, 128 KB at most.
+//   Plain version: ops/dft.py::dft_mixed_ref.
+// * bluestein, every other n from 16 to 4096 (primes such as 509): the
+//   chirp-z transform in one kernel, bluestein_kernel<log2 m> below, one
+//   row per block of m / 8 threads, m the power of two >= 2n - 1 (and
+//   >= 64).  With c_k = exp(sign·πi·(k² mod 2n)/n), y_k = scale·c_k·Σ_j
+//   (x_j·c_j)·conj(c_{k-j}): x·c goes zero-padded into the radix route's
+//   m-point FFT (sign -1, its device functions), which ends with thread t
+//   holding point t + k·m/8 in natural order; those are the points the
+//   backward FFT's first pass takes, so the product with the filter's
+//   spectrum (m complex64, computed in float64 on the host and rounded
+//   once) is made in registers and the backward m-point FFT (sign +1)
+//   starts at once; its first n points times c and scale/m are y.  x and
+//   y move once; 2·(ceil(log2 m / 3) - 1) exchanges in m·8 bytes of
+//   shared memory (64 KB at m = 8192).  Plain version:
+//   ops/dft.py::dft_bluestein_ref.
+// * dense, what is left (n < 16, powers of two above 8192, and non-7-smooth
+//   n above 4096): the complex GEMM dft_kernel below against W as two
+//   float32 planes [n, n] (times scale, built once per (n, sign, scale) by
+//   the wrapper).  Its own floor is 8·M·n² FLOPs on the float32 CUDA cores,
+//   so it is no route for the sizes the other kernels take.  A block
+//   computes a 64 x 64 tile of y with 256 threads, each holding 4 x 4
+//   complex accumulators; the contraction runs in chunks of 16 staged in
+//   shared memory, each chunk summed apart and then added to the
+//   accumulators (about the plain version's 4-GEMM accuracy, at 127
+//   registers).  Ragged rows, columns and chunks are zero-filled on load
+//   and masked on store.
 //
 // Interface: plain C, loaded with ctypes (c_ofdm_tpu_torch/ops/_kernels.py).
 // Each launch goes on the caller's stream, does not synchronise and
@@ -396,6 +437,282 @@ int prepare_fft() {
       S::kSmem));
 }
 
+
+// ---------------------------------------------------------------- mixed
+
+// cos and sin of 2π·q/R for the odd radices, computed in double and rounded
+// once to float (the values of ops/dft.py::_odd_roots); R and q are
+// constants wherever the butterflies below are unrolled, so this folds.
+__device__ __forceinline__ float2 root(int radix, int q) {
+  switch (radix * 8 + q) {
+    case 3 * 8 + 1: return make_float2(-0.5f, 0.866025388f);
+    case 3 * 8 + 2: return make_float2(-0.5f, -0.866025388f);
+    case 5 * 8 + 1: return make_float2(0.309017003f, 0.95105654f);
+    case 5 * 8 + 2: return make_float2(-0.809017003f, 0.587785244f);
+    case 5 * 8 + 3: return make_float2(-0.809017003f, -0.587785244f);
+    case 5 * 8 + 4: return make_float2(0.309017003f, -0.95105654f);
+    case 7 * 8 + 1: return make_float2(0.623489797f, 0.781831503f);
+    case 7 * 8 + 2: return make_float2(-0.222520933f, 0.974927902f);
+    case 7 * 8 + 3: return make_float2(-0.90096885f, 0.433883727f);
+    case 7 * 8 + 4: return make_float2(-0.90096885f, -0.433883727f);
+    case 7 * 8 + 5: return make_float2(-0.222520933f, -0.974927902f);
+    case 7 * 8 + 6: return make_float2(0.623489797f, -0.781831503f);
+    default: return make_float2(1.f, 0.f);
+  }
+}
+
+// y_p = Σ_m u_m · exp(s·2πi·mp/R) for R = 3, 5, 7, in place: with
+// a_k = u_k + u_{R-k} and b_k = u_k - u_{R-k}, y_0 = u_0 + Σ a_k and
+// y_p, y_{R-p} = u_0 + Σ_k cos(2πkp/R)·a_k ± s·i·Σ_k sin(2πkp/R)·b_k
+template <int R>
+__device__ __forceinline__ void dft_odd(float2 (&u)[R], float s) {
+  constexpr int kH = (R - 1) / 2;
+  float2 a[kH];
+  float2 b[kH];
+  float2 y0 = u[0];
+#pragma unroll
+  for (int k = 0; k < kH; ++k) {
+    a[k] = cadd(u[k + 1], u[R - 1 - k]);
+    b[k] = csub(u[k + 1], u[R - 1 - k]);
+    y0 = cadd(y0, a[k]);
+  }
+  float2 y[R];
+  y[0] = y0;
+#pragma unroll
+  for (int p = 1; p <= kH; ++p) {
+    float2 re = u[0];
+    float2 im = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 1; k <= kH; ++k) {
+      const float2 w = root(R, k * p % R);
+      re = make_float2(re.x + w.x * a[k - 1].x, re.y + w.x * a[k - 1].y);
+      im = make_float2(im.x + w.y * b[k - 1].x, im.y + w.y * b[k - 1].y);
+    }
+    const float2 rot = mul_si(im, s);
+    y[p] = cadd(re, rot);
+    y[R - p] = csub(re, rot);
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) u[k] = y[k];
+}
+
+template <int R>
+__device__ __forceinline__ void dft_any(float2 (&u)[R], float s) {
+  if constexpr (R == 3 || R == 5 || R == 7) {
+    dft_odd<R>(u, s);
+  } else {
+    dft_small<R>(u, s);
+  }
+}
+
+// What a mixed_fft_kernel launch needs to know of its row length, passed by
+// value: radices[i] = (plan >> 4i) & 15, passes of them.
+struct MixedPlan {
+  int n;         // points per row
+  int t;         // threads per row, ceil(n / 8)
+  int rows;      // rows per block
+  int stride;    // shared-memory points per row: n rounded up to 16
+  int passes;
+  uint64_t plan;
+};
+
+// The row's shared-memory slot of point i: the radix route's swizzle, a
+// bijection on each aligned run of 16 points, so on the padded row.
+__device__ __forceinline__ int mswz(int i) { return i ^ ((i >> 3) & 15); }
+
+// One pass (radix R, sub-transforms of ns points done) of one row: the
+// thread's butterflies j = t + b·T, b < ceil(8 / R), the last ones masked,
+// each read (from x in the first pass, else from the row's buffer ``in``),
+// twiddled, transformed in registers and written to expand(j, ns, R) +
+// r·ns (in the row's other buffer ``out``, or in y times scale in the last
+// pass).  ``tw`` is this pass's block of the twiddle table, r-major:
+// tw[(r - 1)·ns + j mod ns] = exp(sign·2πi·(j mod ns)·r/(ns·R)), so a
+// warp's load of point r's twiddles is contiguous.  The buffers alternate,
+// so one barrier per pass suffices.  Only the first pass's loop is
+// unrolled, to keep all of the thread's loads from x in flight; unrolled
+// in every pass (twiddle loads hoisted too), the kernel spills under the
+// 64-register cap of 1024-thread blocks.
+template <int R, bool FIRST>
+__device__ __forceinline__ void mixed_pass(
+    const MixedPlan& p, int ns, bool last, bool live, int t,
+    const float2* __restrict__ xr, const float2* __restrict__ in,
+    float2* __restrict__ out, const float2* __restrict__ tw,
+    float2* __restrict__ yr, float s, float scale) {
+  constexpr int kB = (8 + R - 1) / R;
+  const int nb = p.n / R;
+#pragma unroll (FIRST ? kB : 1)
+  for (int b = 0; b < kB; ++b) {
+    const int j = t + b * p.t;
+    if (live && j < nb) {
+      float2 u[R];
+      if constexpr (FIRST) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = __ldg(xr + j + r * nb);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = in[mswz(j + r * nb)];
+        const int jm = j % ns;
+#pragma unroll
+        for (int r = 1; r < R; ++r) {
+          u[r] = cmul(u[r], __ldg(tw + (r - 1) * ns + jm));
+        }
+      }
+      dft_any<R>(u, s);
+      const int base = (j / ns) * ns * R + j % ns;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (last) {
+          yr[base + r * ns] = make_float2(u[r].x * scale, u[r].y * scale);
+        } else {
+          out[mswz(base + r * ns)] = u[r];
+        }
+      }
+    }
+  }
+  if (!last) __syncthreads();
+}
+
+template <int R>
+__device__ __forceinline__ void mixed_pass(
+    const MixedPlan& p, int ns, bool first, bool last, bool live, int t,
+    const float2* __restrict__ xr, const float2* __restrict__ in,
+    float2* __restrict__ out, const float2* __restrict__ tw,
+    float2* __restrict__ yr, float s, float scale) {
+  if (first) {
+    mixed_pass<R, true>(p, ns, last, live, t, xr, in, out, tw, yr, s, scale);
+  } else {
+    mixed_pass<R, false>(p, ns, last, live, t, xr, in, out, tw, yr, s, scale);
+  }
+}
+
+__global__ void __launch_bounds__(1024)
+mixed_fft_kernel(const float2* __restrict__ x, int64_t ldx,
+                 const float2* __restrict__ tw, float2* __restrict__ y,
+                 int64_t m, MixedPlan p, float s, float scale) {
+  extern __shared__ __align__(16) float2 mbuf[];
+  const int t = threadIdx.x % p.t;
+  const int lr = threadIdx.x / p.t;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * p.rows + lr;
+  const bool live = row < m;
+  const float2* xr = x + (live ? row : 0) * ldx;
+  float2* yr = y + (live ? row : 0) * p.n;
+  float2* rb = mbuf + 2 * lr * p.stride;   // the row's two buffers
+  int ns = 1;
+  for (int i = 0; i < p.passes; ++i) {
+    const int radix = static_cast<int>((p.plan >> (4 * i)) & 15);
+    const bool first = i == 0;
+    const bool last = i + 1 == p.passes;
+    const float2* in = rb + ((i + 1) & 1) * p.stride;
+    float2* out = rb + (i & 1) * p.stride;
+    const float2* ptw = tw;
+    if (!first) tw += (radix - 1) * ns;   // the next pass's block
+    switch (radix) {
+      case 8: mixed_pass<8>(p, ns, first, last, live, t, xr, in, out, ptw,
+                            yr, s, scale); break;
+      case 4: mixed_pass<4>(p, ns, first, last, live, t, xr, in, out, ptw,
+                            yr, s, scale); break;
+      case 2: mixed_pass<2>(p, ns, first, last, live, t, xr, in, out, ptw,
+                            yr, s, scale); break;
+      case 3: mixed_pass<3>(p, ns, first, last, live, t, xr, in, out, ptw,
+                            yr, s, scale); break;
+      case 5: mixed_pass<5>(p, ns, first, last, live, t, xr, in, out, ptw,
+                            yr, s, scale); break;
+      default: mixed_pass<7>(p, ns, first, last, live, t, xr, in, out, ptw,
+                             yr, s, scale); break;
+    }
+    ns *= radix;
+  }
+}
+
+constexpr int kMixedMaxSmem = 2 * 8192 * static_cast<int>(sizeof(float2));
+
+// ------------------------------------------------------------ bluestein
+
+// One row per block of m / 8 threads, m = 2^LOG2M >= 2n - 1.  chirp [n]
+// holds c, filt [m] the forward spectrum of h, tw_f / tw_i the m-point
+// tables of sign -1 / +1; post = scale / m.
+template <int LOG2M>
+__global__ void __launch_bounds__(Radix<LOG2M>::kT)
+bluestein_kernel(const float2* __restrict__ x, int64_t ldx,
+                 const float2* __restrict__ chirp,
+                 const float2* __restrict__ filt,
+                 const float2* __restrict__ tw_f,
+                 const float2* __restrict__ tw_i, float2* __restrict__ y,
+                 int n, float post) {
+  using S = Radix<LOG2M>;
+  extern __shared__ __align__(16) float2 buf[];
+  const int t = threadIdx.x;
+  const int64_t row = blockIdx.x;
+  const float2* xr = x + row * ldx;
+
+  // a = x·c, zero-padded to m points: the forward FFT's first pass
+  float2 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = t + k * S::kT;
+    v[k] = i < n ? cmul(__ldg(xr + i), __ldg(chirp + i))
+                 : make_float2(0.f, 0.f);
+  }
+  butterflies<LOG2M, S::kFirst, 1>(v, t, tw_f, -1.f);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    buf[swz(dest<LOG2M, S::kFirst, 1>(t, k))] = v[k];
+  }
+  __syncthreads();
+  radix8_passes<LOG2M, S::kFirst>(v, t, 0, buf, tw_f, -1.f);
+
+  // v[k] = A[t + k·m/8]: times the filter's spectrum, then the backward
+  // FFT, whose first pass takes these same points
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = cmul(v[k], __ldg(filt + t + k * S::kT));
+  butterflies<LOG2M, S::kFirst, 1>(v, t, tw_i, 1.f);
+  __syncthreads();   // every read of the forward's last pass before a write
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    buf[swz(dest<LOG2M, S::kFirst, 1>(t, k))] = v[k];
+  }
+  __syncthreads();
+  radix8_passes<LOG2M, S::kFirst>(v, t, 0, buf, tw_i, 1.f);
+
+  // v[k] = z[t + k·m/8] = m·(a ⊛ h): y = z·c·scale/m
+  float2* yr = y + row * n;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = t + k * S::kT;
+    if (i < n) {
+      const float2 w = cmul(v[k], __ldg(chirp + i));
+      yr[i] = make_float2(w.x * post, w.y * post);
+    }
+  }
+}
+
+template <int LOG2M>
+int launch_bluestein(const float2* x, int64_t ldx, const float2* chirp,
+                     const float2* filt, const float2* tw_f,
+                     const float2* tw_i, float2* y, int64_t rows, int n,
+                     float post, cudaStream_t stream) {
+  using S = Radix<LOG2M>;
+  if (rows > 0x7fffffffLL || 2 * n - 1 > S::kN) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  bluestein_kernel<LOG2M><<<static_cast<unsigned>(rows), S::kT,
+                            S::kN * sizeof(float2), stream>>>(
+      x, ldx, chirp, filt, tw_f, tw_i, y, n, post);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of bluestein_kernel<LOG2M> above 48 KB (m =
+// 8192: 64 KB), set once per process, device and m (ops/dft.py::_prepare),
+// outside any capture, as prepare_fft.
+template <int LOG2M>
+int prepare_bluestein() {
+  constexpr int kSmem = (1 << LOG2M) * static_cast<int>(sizeof(float2));
+  if (kSmem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      bluestein_kernel<LOG2M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem));
+}
+
 }  // namespace
 
 // The set-up c_ofdm_fft's size n needs on the current device (see
@@ -463,6 +780,114 @@ extern "C" int c_ofdm_dft(const void* x, long long ldx, const void* wr,
       static_cast<const float*>(wi), static_cast<float2*>(y), m,
       static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The set-up c_ofdm_mixed_fft needs on the current device: room for the
+// largest row's two buffers, 2 x 8192 points = 128 KB of dynamic shared
+// memory (see prepare_fft).
+extern "C" int c_ofdm_mixed_prepare() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      mixed_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMixedMaxSmem));
+}
+
+// x [m rows, row stride ldx] complex64, tw the plan's twiddle table
+// (ops/dft.py::mixed_twiddles: for each pass after the first, (R - 1)·Ns
+// complex64 values, r-major), y [m, n] complex64 (contiguous); n from 16 to
+// 8192, the product of the plan's passes radices (4 bits each, from {2, 3, 4, 5, 7, 8}), after
+// c_ofdm_mixed_prepare() on this device.
+extern "C" int c_ofdm_mixed_fft(const void* x, long long ldx, const void* tw,
+                                void* y, long long m, long long n,
+                                unsigned long long plan, int passes, int sign,
+                                float scale, void* stream) {
+  if (m <= 0 || ldx < 0 || n < 16 || n > 8192 || passes < 2 || passes > 16 ||
+      (sign != 1 && sign != -1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long prod = 1;
+  for (int i = 0; i < passes; ++i) {
+    const int r = static_cast<int>((plan >> (4 * i)) & 15);
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    prod *= r;
+  }
+  if (prod != n || (passes < 16 && (plan >> (4 * passes)) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MixedPlan p;
+  p.n = static_cast<int>(n);
+  p.t = (p.n + 7) / 8;
+  p.rows = p.t >= 256 ? 1 : 256 / p.t;
+  p.stride = (p.n + 15) / 16 * 16;
+  p.passes = passes;
+  p.plan = plan;
+  const long long blocks = (m + p.rows - 1) / p.rows;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>(2 * p.rows) * p.stride * sizeof(float2);
+  mixed_fft_kernel<<<static_cast<unsigned>(blocks), p.rows * p.t, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), ldx, static_cast<const float2*>(tw),
+      static_cast<float2*>(y), m, p, static_cast<float>(sign), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The set-up c_ofdm_bluestein's m needs on the current device (see
+// prepare_bluestein); m a power of two from 64 to 8192.
+extern "C" int c_ofdm_bluestein_prepare(long long m) {
+  switch (m) {
+    case 64: return prepare_bluestein<6>();
+    case 128: return prepare_bluestein<7>();
+    case 256: return prepare_bluestein<8>();
+    case 512: return prepare_bluestein<9>();
+    case 1024: return prepare_bluestein<10>();
+    case 2048: return prepare_bluestein<11>();
+    case 4096: return prepare_bluestein<12>();
+    case 8192: return prepare_bluestein<13>();
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// x [rows, row stride ldx] complex64, chirp [n], filt [m], tw_f / tw_i [m]
+// (exp(-2πi·k/m) / exp(+2πi·k/m)) complex64, y [rows, n] complex64
+// (contiguous), post = scale / m; n from 2 to 4096, m a power of two from
+// 64 to 8192 and >= 2n - 1, after c_ofdm_bluestein_prepare(m).
+extern "C" int c_ofdm_bluestein(const void* x, long long ldx,
+                                const void* chirp, const void* filt,
+                                const void* tw_f, const void* tw_i, void* y,
+                                long long rows, long long n, long long m,
+                                float post, void* stream) {
+  if (rows <= 0 || ldx < 0 || n < 2 || n > 4096) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* xs = static_cast<const float2*>(x);
+  const auto* cs = static_cast<const float2*>(chirp);
+  const auto* hs = static_cast<const float2*>(filt);
+  const auto* fs = static_cast<const float2*>(tw_f);
+  const auto* is = static_cast<const float2*>(tw_i);
+  auto* ys = static_cast<float2*>(y);
+  const int ni = static_cast<int>(n);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 64: return launch_bluestein<6>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                        ni, post, st);
+    case 128: return launch_bluestein<7>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                         ni, post, st);
+    case 256: return launch_bluestein<8>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                         ni, post, st);
+    case 512: return launch_bluestein<9>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                         ni, post, st);
+    case 1024: return launch_bluestein<10>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                           ni, post, st);
+    case 2048: return launch_bluestein<11>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                           ni, post, st);
+    case 4096: return launch_bluestein<12>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                           ni, post, st);
+    case 8192: return launch_bluestein<13>(xs, ldx, cs, hs, fs, is, ys, rows,
+                                           ni, post, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* c_ofdm_dft_error_string(int code) {

@@ -37,7 +37,7 @@ while they make the next.
 
 Kernel launch counts.  The kernel wrappers count their launches on the host
 (``ops.extract``'s three wrappers: ``launches`` and ``class_launches``;
-``ops.dft.dft``: ``launches``, ``radix_launches``, ``dense_launches``).  No
+``ops.dft.dft``: ``launches`` and one ``<route>_launches`` a route).  No
 Python runs on a replay, so a graph records the counts its capture added
 and adds them again on every replay; the set-up runs (warm-up and capture)
 leave the counts as they found them.  A count therefore says how many times

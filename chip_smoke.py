@@ -10,7 +10,9 @@ matmul_bf16, ct and ct_bf16; the wideband 8k-QAM64 step under ct (B = 128
 frames of 27 904 samples, bench.py's wideband geometry); and the streaming
 receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 246 656 samples, S = 4 consecutive buffers at C = 1, 8 and 64 channels,
-and C = 8 under pallas); and the MAC-framed link loop (``Mac``, the channel
+and C = 8 under pallas); the flagship step and the streaming receiver at
+LTE's 1536-point geometry under pallas (K4's mixed route); and the
+MAC-framed link loop (``Mac``, the channel
 simulator ``apply_channel``, the batch and streaming receivers); and the
 command-line apps (``tx``, ``rx``, ``loopback``, ``ber-sweep``,
 ``ingest-bench``, ``scaling-bench``); and ``parallel/``, the sharded
@@ -18,9 +20,10 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
 
   1 device    the card, its name and power limit (nvidia-smi)
   2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
-              bodies, and the empty kernel) and csrc/dft.cu (K4's radix and
-              dense routes), one nvcc each for sm_90a, started together;
-              ptxas registers and spills of every instantiation
+              bodies, and the empty kernel) and csrc/dft.cu (K4's radix,
+              mixed, Bluestein and dense routes), one nvcc each for sm_90a,
+              started together; ptxas registers and spills of every
+              instantiation
   3 kernel    K1 against its plain PyTorch version, bit for bit
   4 clean     B = 256 payloads decode exactly, one K1 launch per step
   5 impaired  B = 256 frames at random offsets with CFO and 30 dB AWGN plus
@@ -50,9 +53,16 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
  14 dft       K4 against dft_ref and the float64 DFT: the step's two shapes
               (the RX input as the strided CP-stripped view), n = 256 with
               scale 1/sqrt(n), ragged [1000, 512], leading dims (2, 3, 256),
-              n = 500 (dense route), n = 64, 1024 scaled and 8192; error
-              <= 1e-5 max|Y| and <= 4x the plain version's; radix cases
-              also within 1e-6 max|Y| of dft_radix_ref; the route each took
+              n = 64, 1024 scaled and 8192 (radix route); n = 500, the 1536
+              step's RX view (row stride 1644) and TX [2048, 1536] sign +1,
+              600 scaled, 6144 and 448 (mixed route); 509 and 4093
+              (Bluestein, m = 1024 and 8192) and the 510 step's TX
+              [2048, 510] sign +1 and RX view (row stride 638, Bluestein,
+              m = 1024); 8191 (dense); error <= 1e-5
+              max|Y| and <= 4x the plain version's; radix, mixed and
+              Bluestein cases also within 1e-6 max|Y| of the route's own
+              plain version; one launch on the route each took, and no
+              twiddle planes built on the FFT routes
  15 pallas    the flagship step under pallas, B = 256: clean payloads exact
               with K4 launched 2 times (both radix) and K1 once per step;
               phase 5's impaired captures exact at their planted offsets;
@@ -66,10 +76,15 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
  18 dft-timing  K4 at the step's two shapes: device time beside its bound
               (a DFT's bytes and FFT operations), dft_radix_ref, the plain
               version, torch.fft (the library call) and complex torch.matmul
-              with the cached W (torch.profiler), with the L2 warm (one
-              input) and cold (12 inputs in turn); the same for the pallas
-              streaming buffer's one launch, [2952, 512]; the dense route
-              once at [2304, 500]
+              with the cached W (torch.profiler), and the mixed kernel on
+              the same inputs, with the L2 warm (one input) and cold (12
+              inputs in turn); the same for the pallas streaming buffer's
+              one launch, [2952, 512]; then, in turns with the dense route,
+              the route's plain version and torch.fft, warm and cold: the
+              mixed route at [2304, 500] and at the 1536 step's TX
+              [2048, 1536] and RX view [2304, 1536], the Bluestein route at
+              [2304, 509] and at the 510 step's TX [2048, 510] and RX view
+              [2304, 510]
  19 gather-timing  the card's floor per launch (an empty kernel on grids
               (1), (49, 4) and (41, 23) and on the C = 1 path's own two);
               then, in turns within this one call, the scalar body, the
@@ -150,21 +165,29 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               eagerly on the same inputs (the captured calls made to run
               their steps kernel by kernel): FlagshipStep at B = 256 under
               matmul (K1; also transmit_jit -> receive_batch_jit) and pallas
-              (K1 + 2 K4), the wideband step at B = 128 under ct (K1 wide);
+              (K1 + 2 K4 radix), at LTE's 1536-point geometry under pallas
+              (K1 + 2 K4 mixed; then the same step captured on the dense
+              route, the before column) and at a 510-point one (K1 + 2 K4
+              Bluestein), the wideband step at B = 128 under ct (K1 wide);
               StreamingReceiver on phase 8's rings, S = 4, gated, at C = 1
               (K2 twice), 8 and 64 (K3 twice), and C = 8 under pallas (K3
-              twice + K4); the rx CLI on phase 23's 20-buffer stream, full
+              twice + K4), and at C = 1 on 4 buffers of the 1536 geometry's
+              stock 40-frame ring under pallas (K2 twice + K4 mixed; every
+              planted frame exactly once); the rx CLI on phase 23's
+              20-buffer stream, full
               drain, --drain metadata and --chunk 4; the sharded receiver's
               three cells come from phase 24 (a).  Per cell: bytes,
               positions, valid, found, num_found and the state's
               next_min_pos and frames_seen exactly equal, the float fields'
               max difference printed; K1-K4 launches per replay equal to
-              per eager call, and torch.profiler sees each kernel they name
+              per eager call, K4's per route as the cell names them, and
+              torch.profiler sees each kernel they name
               as often per replay; eager and graph in turns: wall per call
               (CUDA events), device time, idle share, capture seconds, the
               graph pool's memory and the copy launches around a replay
 
-Then one JSON line describing the kernels, and last one JSON line
+Then one JSON line describing the kernels (K4 as "dft", and its mixed and
+Bluestein routes as "dft_mixed" and "dft_bluestein"), and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  ``--profile FILE`` also writes a
 torch.profiler table of 10 flagship steps to FILE, one of 10 streaming
@@ -192,6 +215,14 @@ EXTRA_WIDE = 4096  # wideband captures are frame_len + EXTRA_WIDE samples
 WIDEBAND = dict(fft_size=8192, num_data_subc=4096, num_pilot_subc=32,
                 cp_size=1024, num_symb=2, pr_sin_len=512, mod_type=6)
 OTHER_BACKENDS = ("xla", "matmul_bf16", "ct", "ct_bf16")
+# LTE's 15 MHz numerology (3GPP TS 36.211: 1536-point FFT, normal CP 108
+# samples): K4's mixed route, 1536 = 8·8·8·3
+LTE1536 = dict(fft_size=1536, num_data_subc=768, num_pilot_subc=16,
+               cp_size=108)
+# the stock layout at a length with the prime factor 17 (510 = 2·3·5·17):
+# K4's Bluestein route, m = 1024
+NONSMOOTH = dict(fft_size=510, num_data_subc=256, num_pilot_subc=8,
+                 cp_size=128)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -207,6 +238,7 @@ S = 4              # consecutive streaming buffers per channel count
 CHANNELS = (1, 8, 64)
 CPU_CHANNELS = (1, 8)
 STATE_C = 8        # channel count of the state and no-sync phases
+PROFILE_CPU = False  # device_ms records host operators too (--profile)
 
 
 def check(cond, msg):
@@ -230,31 +262,43 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, tries=5):
+def device_ms(fn, reps, tries=5, want=None):
     """(device milliseconds per call, profiler events) over reps calls of
     fn(i): the sum of the CUDA kernel times torch.profiler records.  A
     session that records no device time (seen right after a long profiled
-    window, and three times in a row at phase 19's first K2 case) is
-    repeated after a pause that grows with each try, up to ``tries``
-    sessions."""
+    window, and three times in a row at phase 19's first K2 case), or, with
+    ``want`` ({kernel name: launches per call}, from the launch counts),
+    one that missed some of those launches (seen in graph replays of the
+    1536 flagship step), is repeated after a pause that grows with each
+    try, up to ``tries`` sessions.  The sessions record CUDA activity only
+    (the host's operator events cost a plain version's session 2x its time
+    and count in no device time) unless --profile asks for tables, which
+    show both."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    seen = None
     for attempt in range(tries):
         time.sleep(0.5 * attempt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                          if PROFILE_CPU else [])
+        with profile(activities=acts) as prof:
             for i in range(reps):
                 fn(i)
             torch.cuda.synchronize()
         events = prof.key_averages()
         us = sum(e.self_device_time_total for e in events
                  if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        seen = None if want is None else profiled_names(events, want, reps)
+        if us > 0 and seen == want:
             return us / 1e3 / reps, events
+        say("profiler", f"session {attempt + 1} of {tries} discarded: "
+            f"{us:.1f} us of device time, kernels per call {seen}, want "
+            f"{want}")
     raise RuntimeError(f"chip_smoke: torch.profiler recorded no device time "
-                       f"in {tries} sessions (last: {len(events)} events, "
-                       f"{sorted(e.key for e in events)[:12]})")
+                       f"or missed launches in {tries} sessions (last: "
+                       f"{len(events)} events, kernels per call {seen}, want "
+                       f"{want}, {sorted(e.key for e in events)[:12]})")
 
 
 def phase_device():
@@ -840,15 +884,42 @@ def check_impaired(phase, step, cpu_step, caps_np, offs, payload_np,
     return int(fc.sum()), float(np.abs(diff).max()) if diff.size else 0.0
 
 
+def route_counts():
+    """K4's launches per route, in ops.dft.ROUTES order."""
+    from c_ofdm_tpu_torch.ops import dft
+    return tuple(getattr(dft.dft, f"{r}_launches") for r in dft.ROUTES)
+
+
+def on_route(route, x, sign):
+    """K4 on ``route`` where ``dft._route`` would pick another (a
+    comparison, not the path)."""
+    from c_ofdm_tpu_torch.ops import dft
+    with dft._forced_route(route):
+        return dft.dft(x, sign)
+
+
+def route_plain(route):
+    """The plain PyTorch version of a K4 route's own arithmetic."""
+    from c_ofdm_tpu_torch.ops import dft
+    return {"radix": dft.dft_radix_ref, "mixed": dft.dft_mixed_ref,
+            "bluestein": dft.dft_bluestein_ref}.get(route)
+
+
 def run_dft_checks(dev):
     """Phase 14: K4 against dft_ref and the float64 DFT of the same
-    complex64 input, and on the radix route against dft_radix_ref (the
-    kernel's passes in plain PyTorch, within RADIX_REF_TOL·max|Y|: the two
-    differ only in the rounding of each butterfly); each case on the route
-    ``dft._route`` names.  Returns the worst |K4 - dft_ref|."""
+    complex64 input, and on the radix, mixed and Bluestein routes against
+    the route's own plain version (the kernel's passes in plain PyTorch,
+    within RADIX_REF_TOL·max|Y|: the two differ only in the rounding of
+    each butterfly); each case on the route ``dft._route`` names, one
+    launch on that route's counter, and no twiddle planes built for it on
+    the FFT routes.  Returns {route: worst |kernel - plain|}: "dft" the
+    radix and dense routes' against dft_ref, "mixed" and "bluestein"
+    against the route's own plain version."""
     from c_ofdm_tpu_torch import ModemConfig
     from c_ofdm_tpu_torch.ops import dft
     cfg = ModemConfig()
+    lte = ModemConfig(**LTE1536)
+    odd = ModemConfig(**NONSMOOTH)
     nsym = cfg.num_pr_symb + cfg.num_symb
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
 
@@ -857,6 +928,8 @@ def run_dft_checks(dev):
                            generator=g)
 
     rx = randc(B, nsym * cfg.ofdm_len).reshape(B, nsym, cfg.ofdm_len)
+    rx_lte = randc(B, nsym * lte.ofdm_len).reshape(B, nsym, lte.ofdm_len)
+    rx_odd = randc(B, nsym * odd.ofdm_len).reshape(B, nsym, odd.ofdm_len)
     cases = [
         ("RX view", rx[..., cfg.cp_size:], -1, 1.0),
         ("TX", randc(B, cfg.num_symb, cfg.fft_size), +1, 1.0),
@@ -867,44 +940,62 @@ def run_dft_checks(dev):
         ("n=64", randc(4099, 64), -1, 1.0),
         ("n=1024 scaled", randc(333, 1024), +1, 1.0 / 32),
         ("n=8192", randc(37, 8192), -1, 1.0),
+        ("RX view 1536", rx_lte[..., lte.cp_size:], -1, 1.0),
+        ("TX 1536", randc(B, lte.num_symb, lte.fft_size), +1, 1.0),
+        ("n=600 scaled", randc(333, 600), -1, 1.0 / math.sqrt(600)),
+        ("n=6144", randc(37, 6144), -1, 1.0),
+        ("n=448", randc(1001, 448), +1, 1.0),
+        ("n=509", randc(2304, 509), -1, 1.0),
+        ("n=4093", randc(21, 4093), +1, 1.0),
+        ("RX view 510", rx_odd[..., odd.cp_size:], -1, 1.0),
+        ("TX 510", randc(B, odd.num_symb, odd.fft_size), +1, 1.0),
+        ("n=8191", randc(5, 8191), -1, 1.0),
     ]
-    worst = 0.0
+    worst = {"dft": 0.0, "mixed": 0.0, "bluestein": 0.0}
     for label, x, sign, scale in cases:
         route = dft._route(x.shape[-1])
-        before = (dft.dft.radix_launches, dft.dft.dense_launches)
+        want_counts = tuple(int(r == route) for r in dft.ROUTES)
+        before = route_counts()
+        planes = dft.dft_planes.cache_info().misses
         got = dft.dft(x, sign, scale)
-        counts = (dft.dft.radix_launches - before[0],
-                  dft.dft.dense_launches - before[1])
+        counts = tuple(a - b for a, b in zip(route_counts(), before))
+        built = dft.dft_planes.cache_info().misses - planes
         plain = dft.dft_ref(x, sign, scale)
         x64 = x.to(torch.complex128)
         want = (torch.fft.fft(x64) if sign < 0
                 else torch.fft.ifft(x64) * x.shape[-1]) * scale
         torch.cuda.synchronize()
-        check(counts == ((1, 0) if route == "radix" else (0, 1)),
-              f"K4 {label}: (radix, dense) launches {counts} on the {route} "
-              f"route")
+        check(counts == want_counts,
+              f"K4 {label}: launches per route {dict(zip(dft.ROUTES, counts))}"
+              f" on the {route} route")
+        check(route == "dense" or built == 0,
+              f"K4 {label}: the {route} route built {built} twiddle planes")
         ymax = float(want.abs().max())
         err = float((got.to(torch.complex128) - want).abs().max())
         err_p = float((plain.to(torch.complex128) - want).abs().max())
         diff = float((got - plain).abs().max())
-        worst = max(worst, diff)
+        if route in ("radix", "dense"):
+            worst["dft"] = max(worst["dft"], diff)
         check(got.shape == x.shape and got.dtype == torch.complex64,
               f"K4 {label}: output {tuple(got.shape)} {got.dtype}")
         check(err <= 1e-5 * ymax and err <= 4 * err_p,
               f"K4 {label}: max abs err {err:.3e} vs the float64 DFT, plain "
               f"{err_p:.3e}, max|Y| {ymax:.3e} (need <= 1e-5 max|Y| and "
               f"<= 4x plain)")
-        vs_radix = ""
-        if route == "radix":
-            d = float((got - dft.dft_radix_ref(x, sign, scale)).abs().max())
+        vs_own = ""
+        if route_plain(route):
+            d = float((got - route_plain(route)(x, sign, scale)).abs().max())
             check(d <= RADIX_REF_TOL * ymax,
-                  f"K4 {label}: |K4 - dft_radix_ref| {d:.3e} > "
+                  f"K4 {label}: |K4 - its {route} plain version| {d:.3e} > "
                   f"{RADIX_REF_TOL:g} max|Y| ({ymax:.3e})")
-            vs_radix = f", |K4 - dft_radix_ref| {d / ymax:.2e} of max|Y|"
+            vs_own = (f", |K4 - {route_plain(route).__name__}| "
+                      f"{d / ymax:.2e} of max|Y|")
+            if route in worst:
+                worst[route] = max(worst[route], d)
         say("dft", f"K4 {label} {tuple(x.shape)} sign {sign:+d} scale "
             f"{scale:.4g}, {route} route: max abs err vs float64 {err:.3e} "
             f"({err / ymax:.2e} of max|Y|), plain {err_p:.3e}; "
-            f"|K4 - plain| {diff:.3e}{vs_radix}")
+            f"|K4 - plain| {diff:.3e}{vs_own}")
     return worst
 
 
@@ -1040,10 +1131,13 @@ def dft_timing(dev):
     The bound is that of the function,
     a DFT: x read and y written once at the HBM rate, against the radix-2
     FFT's 5·M·n·log2(n) operations at the float32 rate; the dense product's
-    floor (8·M·n² at the float32 rate) is printed beside it.  Then the
-    dense route once at [2304, 500], warm.  Returns {"warm": sums, "cold":
-    sums} of per-step ms {kernel, radix_ref, plain, library, matmul}, and
-    "bound", "bound_by", "dense" (per step)."""
+    floor (8·M·n² at the float32 rate) is printed beside it.  The mixed
+    kernel runs on the same inputs (``on_route``): the radix kernel stays
+    beside it only while it is the faster.  Then route_timing: the mixed
+    and Bluestein routes against the dense route.  Returns {"warm": sums,
+    "cold": sums} of per-step ms {kernel, mixed, radix_ref, plain, library,
+    matmul},
+    "bound", "bound_by", "dense" (per step), and "routes" (route_timing)."""
     from c_ofdm_tpu_torch import ModemConfig
     from c_ofdm_tpu_torch.ops import dft
     cfg = ModemConfig()
@@ -1059,7 +1153,7 @@ def dft_timing(dev):
                           device=dev, generator=g)
         return sig.reshape(rows, nsym, cfg.ofdm_len)[..., cfg.cp_size:]
 
-    keys = ("kernel", "radix_ref", "plain", "library", "matmul")
+    keys = ("kernel", "mixed", "radix_ref", "plain", "library", "matmul")
     out = {cond: dict.fromkeys(keys, 0.0) for cond in ("warm", "cold")}
     out["bound"] = out["dense"] = 0.0
     limits = {"bytes": 0.0, "operations": 0.0}
@@ -1092,6 +1186,7 @@ def dft_timing(dev):
                    else (lambda i: torch.fft.ifft(xs[i % sets],
                                                   norm="forward")))
             fns = {"kernel": lambda i: dft.dft(xs[i % sets], sign),
+                   "mixed": lambda i: on_route("mixed", xs[i % sets], sign),
                    "radix_ref": lambda i: dft.dft_radix_ref(xs[i % sets],
                                                             sign),
                    "plain": lambda i: dft.dft_ref(xs[i % sets], sign),
@@ -1111,7 +1206,9 @@ def dft_timing(dev):
                 f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
                 f"us ({nbytes / 1e6:.1f} MB of x and y at 3.35 TB/s; "
                 f"{fft_flops / 1e6:.1f} MFLOP of an FFT at 67 TFLOP/s fp32), "
-                f"{nbytes / (med['kernel'] * 1e-3) / 1e9:.0f} GB/s; "
+                f"{nbytes / (med['kernel'] * 1e-3) / 1e9:.0f} GB/s; the "
+                f"mixed kernel {med['mixed'] * 1e3:.3f} us (mixed / radix "
+                f"{med['mixed'] / med['kernel']:.2f}); "
                 f"dft_radix_ref {med['radix_ref'] * 1e3:.3f} us; plain "
                 f"(dft_ref) {med['plain'] * 1e3:.3f} us; library (torch.fft) "
                 f"{med['library'] * 1e3:.3f} us (K4 / library "
@@ -1126,25 +1223,115 @@ def dft_timing(dev):
             f"{t['kernel']:.5f} ms ({out['bound'] / t['kernel']:.1%} of the "
             f"bound {out['bound']:.5f} ms, {out['bound_by']}), library "
             f"{t['library']:.5f} ms (K4 / library "
-            f"{t['kernel'] / t['library']:.3f}), dft_radix_ref "
+            f"{t['kernel'] / t['library']:.3f}), mixed kernel "
+            f"{t['mixed']:.5f} ms (mixed / radix "
+            f"{t['mixed'] / t['kernel']:.3f}), dft_radix_ref "
             f"{t['radix_ref']:.5f} ms, plain {t['plain']:.5f} ms, complex "
             f"matmul {t['matmul']:.5f} ms")
 
-    # the dense route once, at the RX row count and n = 500
-    x = torch.randn(B * nsym, 500, dtype=torch.complex64, device=dev,
-                    generator=g)
-    check(dft._route(500) == "dense", "n = 500 not on the dense route")
-    fns = {"kernel": lambda i: dft.dft(x, -1),
-           "library": lambda i: torch.fft.fft(x)}
-    for fn in fns.values():
-        cuda_ms(fn, 4)
-    med = {k: device_ms(fn, 24)[0] for k, fn in fns.items()}
-    nb = 2 * x.numel() * 8
-    say("dft-timing", f"K4 dense route [{x.shape[0]},500] sign -1, warm L2: "
-        f"kernel {med['kernel'] * 1e3:.3f} us against the bound "
-        f"{bytes_ms(nb) * 1e3:.3f} us (bytes) and the dense product's floor "
-        f"{8 * x.shape[0] * 500 ** 2 / FP32_FLOP_S * 1e6:.3f} us; library "
-        f"(torch.fft) {med['library'] * 1e3:.3f} us")
+    out["routes"] = route_timing(dev, g)
+    return out
+
+
+def route_timing(dev, g):
+    """Phase 18, second part: K4's mixed and Bluestein routes against the
+    dense route (``on_route`` "dense": the GEMM on the n x n planes that
+    took every such n before), the route's plain version and torch.fft, in
+    turns, with the L2 warm and cold as above, at [2304, 500] (the stock RX
+    row count at ModemConfig's fft_size = 500), the 1536 flagship step's TX
+    [2048, 1536] (sign +1) and RX view [2304, 1536] (row stride 1644),
+    [2304, 509] (a prime: Bluestein, m = 1024) and the 510 step's TX
+    [2048, 510] (sign +1) and RX view [2304, 510] (row stride 638,
+    Bluestein, m = 1024).  The sums are over the shapes the path's steps
+    give the route: the 1536 step's for mixed, the 510 step's for
+    Bluestein.  The bound is a DFT's, as above, whatever the algorithm.
+    Returns
+    {route: {"kernel", "plain", "library", "bound" (ms, cold, summed over
+    the route's step shapes), "bound_by", "shapes": {label: medians}}}."""
+    from c_ofdm_tpu_torch import ModemConfig
+    from c_ofdm_tpu_torch.ops import dft
+    lte = ModemConfig(**LTE1536)
+    odd = ModemConfig(**NONSMOOTH)
+
+    def rx_view(c):
+        nsym = c.num_pr_symb + c.num_symb
+        sig = torch.randn(B, nsym * c.ofdm_len, dtype=torch.complex64,
+                          device=dev, generator=g)
+        return sig.reshape(B, nsym, c.ofdm_len)[..., c.cp_size:]
+
+    shapes = (("n=500", lambda: torch.randn(
+                   B * 9, 500, dtype=torch.complex64, device=dev,
+                   generator=g), -1, False),
+              ("TX 1536", lambda: torch.randn(
+                   B, lte.num_symb, 1536, dtype=torch.complex64, device=dev,
+                   generator=g), +1, True),
+              ("RX view 1536", lambda: rx_view(lte), -1, True),
+              ("n=509 (prime)", lambda: torch.randn(
+                   B * 9, 509, dtype=torch.complex64, device=dev,
+                   generator=g), -1, False),
+              ("TX 510", lambda: torch.randn(
+                   B, odd.num_symb, 510, dtype=torch.complex64, device=dev,
+                   generator=g), +1, True),
+              ("RX view 510", lambda: rx_view(odd), -1, True))
+    out = {}
+    for label, make, sign, in_sum in shapes:
+        xs = [make() for _ in range(COLD_SETS)]
+        n = xs[0].shape[-1]
+        m = xs[0].numel() // n
+        route = dft._route(n)
+        nbytes = 2 * m * n * 8
+        check(COLD_SETS * nbytes / 2 > 2 * L2_BYTES,
+              f"{label}: {COLD_SETS} input sets do not exceed the L2 twice")
+        by = {"bytes": bytes_ms(nbytes),
+              "operations": 5 * m * n * math.log2(n) / FP32_FLOP_S * 1e3}
+        bound = max(by.values())
+        rec = out.setdefault(route, {"kernel": 0.0, "plain": 0.0,
+                                     "library": 0.0, "bound": 0.0,
+                                     "limits": dict.fromkeys(by, 0.0),
+                                     "shapes": {}})
+        plain = route_plain(route)
+        for cond, sets in (("warm", 1), ("cold", COLD_SETS)):
+            lib = ((lambda i: torch.fft.fft(xs[i % sets])) if sign < 0
+                   else (lambda i: torch.fft.ifft(xs[i % sets],
+                                                  norm="forward")))
+            fns = {"kernel": lambda i: dft.dft(xs[i % sets], sign),
+                   "dense": lambda i: on_route("dense", xs[i % sets], sign),
+                   "plain": lambda i: plain(xs[i % sets], sign),
+                   "library": lib}
+            for fn in fns.values():
+                cuda_ms(fn, 2 * sets)
+            devt = {k: [] for k in fns}
+            for order in (tuple(fns), tuple(reversed(fns))):
+                for k in order:
+                    slow = k in ("dense", "plain")
+                    devt[k].append(device_ms(fns[k], 6 if slow else 24)[0])
+            med = {k: statistics.median(v) for k, v in devt.items()}
+            rec["shapes"][f"{label} {cond}"] = med
+            if cond == "cold" and in_sum:
+                for k in ("kernel", "plain", "library"):
+                    rec[k] += med[k]
+                rec["bound"] += bound
+                for k in by:
+                    rec["limits"][k] += by[k]
+            target = 10 if route == "mixed" else 5
+            say("dft-timing", f"K4 {route} route {label} [{m},{n}] sign "
+                f"{sign:+d}, {cond} L2: kernel {med['kernel'] * 1e3:.3f} us, "
+                f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
+                f"us ({nbytes / 1e6:.1f} MB at 3.35 TB/s); dense route "
+                f"{med['dense'] * 1e3:.3f} us (dense / kernel "
+                f"{med['dense'] / med['kernel']:.1f}x, target >= {target}x: "
+                f"{'met' if med['dense'] >= target * med['kernel'] else 'MISSED'}"
+                f"); {plain.__name__} {med['plain'] * 1e3:.3f} us; library "
+                f"(torch.fft) {med['library'] * 1e3:.3f} us (K4 / library "
+                f"{med['kernel'] / med['library']:.2f}) (device, median of 2 "
+                f"profiled runs of 24 calls, 6 for dense and plain)")
+    for route, rec in out.items():
+        rec["bound_by"] = max(rec["limits"], key=rec["limits"].get)
+        say("dft-timing", f"K4 {route} route, summed over its step shapes, "
+            f"cold L2: kernel {rec['kernel']:.5f} ms "
+            f"({rec['bound'] / rec['kernel']:.1%} of the bound "
+            f"{rec['bound']:.5f} ms, {rec['bound_by']}), plain "
+            f"{rec['plain']:.5f} ms, library {rec['library']:.5f} ms")
     return out
 
 
@@ -1322,17 +1509,27 @@ def crc16_scan(data):
     return crc
 
 
-def profile_call(fn, reps):
+def profile_call(fn, reps, tries=5):
     """(device ms per call, CUDA kernels per call) of fn over reps calls,
-    torch.profiler; and the wall ms per call by CUDA events."""
+    torch.profiler; and the wall ms per call by CUDA events.  The profiler
+    now and then drops a launch's record, and never adds one (seen in phase
+    20: crc16's 14 kernels a call recorded as 13.6), so the count is taken
+    once two sessions in a row record the same one, up to ``tries``
+    sessions."""
     from torch.autograd import DeviceType
     fn(0)
     torch.cuda.synchronize()
     wall = statistics.median(cuda_ms(fn, reps) for _ in range(3))
-    ms, events = device_ms(fn, reps)
-    kernels = sum(e.count for e in events
-                  if e.device_type == DeviceType.CUDA) / reps
-    return ms, kernels, wall
+    last = None
+    for _ in range(tries):
+        ms, events = device_ms(fn, reps)
+        kernels = sum(e.count for e in events
+                      if e.device_type == DeviceType.CUDA) / reps
+        if kernels == last:
+            return ms, kernels, wall
+        last = kernels
+    raise RuntimeError(f"chip_smoke: torch.profiler recorded no kernel count "
+                       f"twice in {tries} sessions (last {kernels} a call)")
 
 
 def noisy_reads(mac, wire, rng):
@@ -2279,6 +2476,13 @@ def launches_of(fn):
             if v != before.get(k, 0)}
 
 
+# K4's launch counter of each route and the kernel it launches
+K4_KERNELS = {"radix_launches": "fft_kernel",
+              "mixed_launches": "mixed_fft_kernel",
+              "bluestein_launches": "bluestein_kernel",
+              "dense_launches": "dft_kernel"}
+
+
 def kernel_names(delta):
     """The device kernels one call's launch-count delta names, with how many
     of each: K1-K3's body by class, K4's route."""
@@ -2286,8 +2490,8 @@ def kernel_names(delta):
     for (f, attr, k), v in delta.items():
         if attr == "class_launches":
             name = f"extract_{k}_kernel"
-        elif attr in ("radix_launches", "dense_launches"):
-            name = "fft_kernel" if attr == "radix_launches" else "dft_kernel"
+        elif attr in K4_KERNELS:
+            name = K4_KERNELS[attr]
         else:
             continue
         want[name] = want.get(name, 0) + v
@@ -2295,10 +2499,14 @@ def kernel_names(delta):
 
 
 def profiled_names(events, names, reps):
-    """Per call, how many device kernels of each name torch.profiler saw."""
+    """Per call, how many device kernels of each name torch.profiler saw
+    (the name not preceded by a letter or "_", demangled or not:
+    "fft_kernel" is not "mixed_fft_kernel")."""
+    import re
     from torch.autograd import DeviceType
     return {n: sum(e.count for e in events
-                   if e.device_type == DeviceType.CUDA and n in e.key) / reps
+                   if e.device_type == DeviceType.CUDA
+                   and re.search(rf"(?<![A-Za-z_]){n}", e.key)) / reps
             for n in names}
 
 
@@ -2309,12 +2517,14 @@ def max_diff(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
-def compiled_timing(tag, fns, reps=8, prof_reps=4, phase="compiled"):
+def compiled_timing(tag, fns, reps=8, prof_reps=4, phase="compiled",
+                    want=None):
     """Eager and graph in turns (eager, graph, graph, eager): per call the
     median wall by CUDA events around each call, the device time (kernel
-    sum, torch.profiler) and the idle share.  ``fns`` maps "eager" and
-    "graph" to fn(i); the eager turns run under eager_calls().  Returns
-    {mode: (wall ms, device ms)} and the graph's profiler events."""
+    sum, torch.profiler, from windows that saw every launch ``want`` names)
+    and the idle share.  ``fns`` maps "eager" and "graph" to fn(i); the
+    eager turns run under eager_calls().  Returns {mode: (wall ms, device
+    ms)} and the graph's profiler events."""
     wall = {k: [] for k in fns}
     devt = {k: [] for k in fns}
     events = None
@@ -2324,7 +2534,7 @@ def compiled_timing(tag, fns, reps=8, prof_reps=4, phase="compiled"):
             fns[k](0)
             torch.cuda.synchronize()
             wall[k] += [cuda_ms(fns[k], 1) for _ in range(reps)]
-            ms, ev = device_ms(fns[k], prof_reps)
+            ms, ev = device_ms(fns[k], prof_reps, want=want)
             devt[k].append(ms)
         if k == "graph":
             events = ev
@@ -2369,9 +2579,51 @@ def graph_record(tag, call, phase="compiled"):
     return recs
 
 
-def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False):
+def check_routes(tag, replay, routes):
+    """K4's launches per replay on each route: ``routes`` ({route: n}),
+    none on the others."""
+    from c_ofdm_tpu_torch.ops import dft
+    got = {r: replay.get(f"dft.{r}_launches", 0) for r in dft.ROUTES}
+    want = {r: routes.get(r, 0) for r in dft.ROUTES}
+    check(got == want, f"compiled {tag}: K4 launches per replay {got}, "
+          f"want {want}")
+
+
+def route_before(dev, tag, cfg, payloads, route):
+    """The cell's step once more, captured with every K4 launch on
+    ``route``: bytes exact, K4 on that route only, then the graph's wall
+    (CUDA events, median of 8) and device time (torch.profiler, 4 calls).
+    The launch counts are put back afterwards: these launches are a
+    comparison, not the path."""
+    from c_ofdm_tpu_torch import make_frame_spec
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    from c_ofdm_tpu_torch.ops import dft
+    from c_ofdm_tpu_torch.utils import graphs
+    counts = graphs.launch_counts()
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend="pallas"))
+    with dft._forced_route(route):
+        res, _ = step(payloads[0])
+        delta = launches_of(lambda: step(payloads[0]))
+    check(torch.equal(res.mac_bytes, payloads[0]),
+          f"compiled {tag}: bytes wrong on the {route} route")
+    check_routes(f"{tag} ({route} before)", count_names(delta), {route: 2})
+    wall = statistics.median(cuda_ms(lambda i: step(payloads[i % 2]), 1)
+                             for _ in range(8))
+    devt, _ = device_ms(lambda i: step(payloads[i % 2]), 4)
+    graphs._set_counts(counts)
+    say("compiled", f"{tag}: the same step captured on the {route} route "
+        f"(the before column): bytes exact, K4 2 {route} launches per "
+        f"replay; graph {wall:.4f} ms per call, device {devt:.4f} ms")
+    return {"route": route, "wall": wall, "device": devt}
+
+
+def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False,
+                  routes=None, before=None):
     """One flagship step: FlagshipStep's graph against the same step run
-    eagerly on the same payloads."""
+    eagerly on the same payloads; with ``routes``, K4's launches per replay
+    on each route checked; with ``before``, the step once more with K4 on
+    that route (route_before)."""
     from c_ofdm_tpu_torch import make_frame_spec
     from c_ofdm_tpu_torch.models import rx, tx
     from c_ofdm_tpu_torch.models.modem import FlagshipStep
@@ -2411,19 +2663,29 @@ def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False):
         + ("; transmit_jit -> receive_batch_jit = the step's graph"
            if jit_check else ""))
     fns = {m: (lambda i: step(payloads[i % 2])) for m in ("eager", "graph")}
-    times, events = compiled_timing(tag, fns)
+    want = kernel_names(launches_of(lambda: step(payloads[0])))
+    times, events = compiled_timing(tag, fns, want=want)
     replay, seen = check_replay_counts(tag, lambda: step(payloads[0]),
                                        lambda: step(payloads[0]), events, 4)
+    if routes:
+        check_routes(tag, count_names(replay), routes)
     say("compiled", f"{tag}: launches per replay = per eager call "
         f"{count_names(replay)}; profiler per replay {seen}")
-    return {"tag": tag, "times": times, "launches": count_names(replay),
+    cell = {"tag": tag, "times": times, "launches": count_names(replay),
             "worst": worst, "capture_s": recs[0].capture_s,
             "pool_mib": recs[0].pool_bytes / 2**20}
+    if before:
+        cell["before"] = route_before(dev, tag, cfg, payloads, before)
+    return cell
 
 
-def stream_cell(dev, tag, spec, blocks, C):
+def stream_cell(dev, tag, spec, blocks, C, routes=None, truth=None,
+                extra=None):
     """S buffers through a StreamingReceiver's graph against the same
-    receiver code run eagerly, each from the initial state."""
+    receiver code run eagerly, each from the initial state; with
+    ``routes``, K4's launches per replay on each route checked, with
+    ``extra`` other launches per replay ({count name: n}); with ``truth``,
+    every planted frame decoded exactly once (check_truth)."""
     from c_ofdm_tpu_torch.models import streaming
     rxe = streaming.StreamingReceiver(spec, channels=0 if C == 1 else C)
     rxg = streaming.StreamingReceiver(spec, channels=0 if C == 1 else C)
@@ -2451,6 +2713,9 @@ def stream_cell(dev, tag, spec, blocks, C):
               f"compiled {tag}: state {name} graph != eager")
     worst["carry"] = max_diff(se.carry, sg.carry)
     found = int(sg.frames_seen.sum())
+    if truth is not None:
+        check(check_truth(spec, got, truth, C) == found,
+              f"compiled {tag}: {found} frames seen")
     say("compiled", f"{tag}: {len(blocks)} buffers, graph = eager: "
         f"positions, valid, num_found, the valid slots' bytes (all slots' "
         f"bytes equal: {all_bytes}), next_min_pos, frames_seen exact "
@@ -2459,9 +2724,16 @@ def stream_cell(dev, tag, spec, blocks, C):
     S_ = len(blocks)
     fns = {m: (lambda i, r=r: r.feed(blocks[i % S_]))
            for m, r in (("eager", rxe), ("graph", rxg))}
-    times, events = compiled_timing(tag, fns)
+    want = kernel_names(launches_of(lambda: rxg.feed(blocks[0])))
+    times, events = compiled_timing(tag, fns, want=want)
     replay, seen = check_replay_counts(tag, lambda: rxe.feed(blocks[0]),
                                        lambda: rxg.feed(blocks[0]), events, 4)
+    if routes:
+        check_routes(tag, count_names(replay), routes)
+    for name, v in (extra or {}).items():
+        check(count_names(replay).get(name) == v,
+              f"compiled {tag}: {name} {count_names(replay).get(name)} per "
+              f"replay, want {v}")
     say("compiled", f"{tag}: launches per replay = per eager call "
         f"{count_names(replay)}; profiler per replay {seen}")
     return {"tag": tag, "times": times, "launches": count_names(replay),
@@ -2494,7 +2766,8 @@ def sharded_cell(tag, recv, block, samples):
         f"{torch.equal(want.mac_bytes, got.mac_bytes)}); max abs diff diag "
         f"{worst['diag']:.3g}, cfo {worst['cfo']:.3g}")
     fns = {m: (lambda i: recv(block)) for m in ("eager", "graph")}
-    times, events = compiled_timing(tag, fns, phase="parallel")
+    want = kernel_names(launches_of(lambda: recv(block)))
+    times, events = compiled_timing(tag, fns, phase="parallel", want=want)
     replay, seen = check_replay_counts(tag, lambda: recv(block),
                                        lambda: recv(block), events, 4)
     ops = sum(e.count for e in events if e.device_type == DeviceType.CUDA) / 4
@@ -2625,7 +2898,8 @@ def run_compiled(dev, card, stream_data, sharded_cells):
            extract.extract_windows_multi, dft.dft)
     for f in fns:
         f.launches = 0
-    dft.dft.radix_launches = dft.dft.dense_launches = 0
+    for r in dft.ROUTES:
+        setattr(dft.dft, f"{r}_launches", 0)
     rng = np.random.default_rng(SEED + 25)
     cells = []
 
@@ -2636,12 +2910,19 @@ def run_compiled(dev, card, stream_data, sharded_cells):
             c["phase_s"] = time.perf_counter() - t
             cells.append(c)
 
-    for tag, cfg, backend, batch in (
-            ("flagship matmul", ModemConfig(), "matmul", B),
-            ("flagship pallas", ModemConfig(), "pallas", B),
-            ("wideband ct", ModemConfig(**WIDEBAND), "ct", B_WIDE)):
+    for tag, cfg, backend, batch, routes, before in (
+            ("flagship matmul", ModemConfig(), "matmul", B, None, None),
+            ("flagship pallas", ModemConfig(), "pallas", B, {"radix": 2},
+             None),
+            ("flagship pallas 1536", ModemConfig(**LTE1536), "pallas", B,
+             {"mixed": 2}, "dense"),
+            ("flagship pallas 510", ModemConfig(**NONSMOOTH), "pallas", B,
+             {"bluestein": 2}, None),
+            ("wideband ct", ModemConfig(**WIDEBAND), "ct", B_WIDE, None,
+             None)):
         timed(lambda: flagship_cell(dev, tag, cfg, backend, batch, rng,
-                                    jit_check=backend == "matmul"))
+                                    jit_check=backend == "matmul",
+                                    routes=routes, before=before))
     cfg = ModemConfig()
     for backend, chans in (("matmul", CHANNELS), ("pallas", (STATE_C,))):
         spec = make_frame_spec(cfg, torch.complex64, device=dev,
@@ -2649,11 +2930,21 @@ def run_compiled(dev, card, stream_data, sharded_cells):
         for C in chans:
             timed(lambda: stream_cell(dev, f"stream {backend} C={C}", spec,
                                       stream_data[C][0], C))
+    spec = make_frame_spec(ModemConfig(**LTE1536), torch.complex64,
+                           device=dev, fft_backend="pallas")
+    blocks, truth, _ = streaming_buffers(spec, 1, SEED + 26)
+    timed(lambda: stream_cell(dev, "stream pallas 1536 C=1", spec, blocks, 1,
+                              routes={"mixed": 1}, truth=truth,
+                              extra={"extract_windows_single.launches": 2}))
     timed(lambda: rx_app_cell(dev, card))
     counts = {f.__name__: f.launches for f in fns}
-    check(all(counts.values()), f"compiled: a kernel never replayed: {counts}")
-    say("compiled", f"replay launches in this phase {counts} (K4 radix "
-        f"{dft.dft.radix_launches}, dense {dft.dft.dense_launches})")
+    routes = dict(zip(dft.ROUTES, route_counts()))
+    check(all(counts.values()) and all(routes[r] for r in
+                                       ("radix", "mixed", "bluestein")),
+          f"compiled: a kernel never replayed: {counts}, K4 {routes}")
+    say("compiled", f"replay launches in this phase {counts} (K4 per route "
+        f"{routes})")
+    counts.update({f"dft_{r}": v for r, v in routes.items()})
     print(json.dumps({"compiled": cells + sharded_cells}), flush=True)
     say("compiled", f"phase took {time.perf_counter() - t0:.1f} s")
     return counts
@@ -2667,6 +2958,8 @@ def main():
                          "(FILE.stream_c<C>) and 10 pallas and wideband "
                          "steps (FILE.pallas, FILE.wideband)")
     args = ap.parse_args()
+    global PROFILE_CPU
+    PROFILE_CPU = bool(args.profile)
 
     t_start = time.perf_counter()
     dev, card = phase_device()
@@ -2748,17 +3041,23 @@ def main():
             f"{w * 1e3:.2f} us per call with host dispatch; bound "
             f"{k1_bound * 1e3:.3f} us (bytes)")
 
+    say("time", f"phases 1-6 done at {time.perf_counter() - t_start:.1f} s")
     # ---- 7-13: the streaming receiver
     ring_err = run_ring_kernel_checks(dev)
     stream = run_streaming(dev, args.profile)
 
+    say("time", f"phases 7-13 done at {time.perf_counter() - t_start:.1f} s")
     # ---- 14-18: K4, the pallas step, the other backends, wideband
+    t14 = time.perf_counter()
     dft_err = run_dft_checks(dev)
+    say("dft", f"phase took {time.perf_counter() - t14:.1f} s")
     k4_launches, _, _ = run_pallas_step(dev, payload_np, caps_np, offs,
                                         args.profile)
     run_backends(dev, payload_np)
     run_wideband(dev, args.profile)
+    t18 = time.perf_counter()
     k4 = dft_timing(dev)
+    say("dft-timing", f"phase took {time.perf_counter() - t18:.1f} s")
     t19 = time.perf_counter()
     gather_timing(dev)
     say("gather-timing", f"phase took {time.perf_counter() - t19:.1f} s")
@@ -2767,6 +3066,7 @@ def main():
     run_mac(dev)
     run_link_batch(dev)
     run_link_stream(dev)
+    say("time", f"phases 14-22 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 23: the CLI apps
     run_apps(dev, card)
@@ -2822,14 +3122,26 @@ def main():
         "route": "cuda",
         "source": "c_ofdm_tpu_torch/csrc/dft.cu",
         "replaces": "c_ofdm_tpu/ops/pallas_fft.py:41",
-        "launches": k4_launches + replays["dft"],
-        "max_abs_err": dft_err,
+        "launches": k4_launches + replays["dft_radix"],
+        "max_abs_err": dft_err["dft"],
         "ms": k4["cold"]["kernel"],
         "plain_ms": k4["cold"]["plain"],
         "bound_ms": k4["bound"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["cold"]["library"],
-    }]}), flush=True)
+    }] + [{
+        "name": f"dft_{route}",
+        "route": "cuda",
+        "source": "c_ofdm_tpu_torch/csrc/dft.cu",
+        "replaces": "c_ofdm_tpu/ops/pallas_fft.py:41",
+        "launches": replays[f"dft_{route}"],
+        "max_abs_err": dft_err[route],
+        "ms": k4["routes"][route]["kernel"],
+        "plain_ms": k4["routes"][route]["plain"],
+        "bound_ms": k4["routes"][route]["bound"],
+        "bound_by": k4["routes"][route]["bound_by"],
+        "library_ms": k4["routes"][route]["library"],
+    } for route in ("mixed", "bluestein")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

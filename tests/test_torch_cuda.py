@@ -1,5 +1,6 @@
-"""The port on the card: K1, K2, K3 and K4 against their plain versions,
-the flagship step (matmul and pallas backends), one gated streaming buffer,
+"""The port on the card: K1, K2, K3 and K4 (each of its four routes)
+against their plain versions, the flagship step (matmul and pallas
+backends, and pallas at a 1536-point geometry), one gated streaming buffer,
 the MAC codec and channel simulator against their CPU runs, and the
 captured calls (CUDA-graph replays) against their eager runs, the sharded
 receiver and the channel-sharded stream among them.
@@ -285,6 +286,12 @@ def test_gated_buffer_on_card_equals_cpu(dev):
     np.testing.assert_array_equal(cpu.mac_bytes[valid].numpy(), payload)
 
 
+def _route_counts():
+    """K4's total launch count and its count per route."""
+    return {"launches": dft.dft.launches,
+            **{r: getattr(dft.dft, f"{r}_launches") for r in dft.ROUTES}}
+
+
 def _dft64(x, sign, scale):
     x64 = x.to(torch.complex128)
     y = torch.fft.fft(x64) if sign < 0 else torch.fft.ifft(x64) * x.shape[-1]
@@ -295,9 +302,9 @@ def _dft64(x, sign, scale):
 def test_dft_kernel_matches_plain_version(dev, case):
     """K4 at the flagship step's shapes (the RX input is the strided
     CP-stripped view, row stride 640), a ragged row count and a size that is
-    no power of two (the dense route; the others take the radix route),
+    no power of two (the mixed route; the others take the radix route),
     against dft_ref and the float64 DFT: within 1e-5·max|Y| and within 4x
-    the plain version's own error."""
+    the plain version's own error; one launch, on the route _route names."""
     g = torch.Generator(device=dev).manual_seed(4)
 
     def randc(*shape):
@@ -313,15 +320,14 @@ def test_dft_kernel_matches_plain_version(dev, case):
         x = randc(1000, 512)
     else:
         x, scale = randc(3, 77, 500), 1.0 / np.sqrt(500)
-    before = (dft.dft.launches, dft.dft.radix_launches,
-              dft.dft.dense_launches)
+    before = _route_counts()
     got = dft.dft(x, sign, scale)
     plain = dft.dft_ref(x, sign, scale)
     torch.cuda.synchronize()
-    radix = case != "n500_scaled"
-    assert (dft.dft.launches, dft.dft.radix_launches,
-            dft.dft.dense_launches) == (before[0] + 1, before[1] + radix,
-                                        before[2] + (not radix))
+    route = "mixed" if case == "n500_scaled" else "radix"
+    assert dft._route(x.shape[-1]) == route
+    assert _route_counts() == {k: v + (k in ("launches", route))
+                               for k, v in before.items()}
     assert got.shape == x.shape and got.dtype == torch.complex64
     want = _dft64(x, sign, scale)
     err = float((got.to(torch.complex128) - want).abs().max())
@@ -367,6 +373,115 @@ def test_dft_radix_kernel_matches_plain_versions(dev, case):
     assert err <= 1e-5 * ymax
     assert err <= 4 * err_plain
     assert float((got - radix).abs().max()) <= 1e-6 * ymax
+
+
+_NEW_ROUTE_CASES = {
+    # name: (rows or a view maker, n, sign, scale)
+    "n500": (2304, 500, -1, 1.0),
+    "rx_view_1536": ("view", 1536, -1, 1.0),
+    "tx_1536": (2048, 1536, +1, 1.0),
+    "n600_scaled": (333, 600, +1, 600 ** -0.5),
+    "n6144": (37, 6144, -1, 1.0),
+    "n448": (1001, 448, +1, 1.0),
+    "n7168": (9, 7168, -1, 1.0 / 64),
+    "n509": (2304, 509, -1, 1.0),
+    "n4093": (21, 4093, +1, 1.0),
+    "n17_scaled": (99, 17, -1, 0.25),
+    "tx_510": (2048, 510, +1, 1.0),
+    "rx_view_510": ("view", 510, -1, 1.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_NEW_ROUTE_CASES))
+def test_dft_mixed_and_bluestein_kernels_match_plain_versions(dev, case):
+    """The mixed and Bluestein routes against their own plain versions
+    (dft_mixed_ref, dft_bluestein_ref: the same passes and tables, within
+    1e-6·max|Y|), dft_ref and the float64 DFT (within 1e-5·max|Y| and 4x
+    dft_ref's error); one launch on the route's counter, and no n x n
+    planes built for it."""
+    rows, n, sign, scale = _NEW_ROUTE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(11)
+    if rows == "view":  # the 1536 and 510 steps' CP-stripped RX symbols
+        cp = {1536: 108, 510: 128}[n]
+        x = torch.randn(256, 9 * (n + cp), dtype=torch.complex64, device=dev,
+                        generator=g).reshape(256, 9, n + cp)[..., cp:]
+    else:
+        x = torch.randn(rows, n, dtype=torch.complex64, device=dev,
+                        generator=g)
+    route = dft._route(n)
+    assert route == ("bluestein" if n in (509, 4093, 17, 510) else "mixed")
+    dft.dft_planes.cache_clear()
+    before = _route_counts()
+    got = dft.dft(x, sign, scale)
+    torch.cuda.synchronize()
+    assert _route_counts() == {k: v + (k in ("launches", route))
+                               for k, v in before.items()}
+    assert dft.dft_planes.cache_info().currsize == 0
+    assert got.shape == x.shape and got.dtype == torch.complex64
+    want = _dft64(x, sign, scale)
+    ymax = float(want.abs().max())
+    err = float((got.to(torch.complex128) - want).abs().max())
+    err_plain = float((dft.dft_ref(x, sign, scale).to(torch.complex128)
+                       - want).abs().max())
+    own = (dft.dft_mixed_ref if route == "mixed"
+           else dft.dft_bluestein_ref)(x, sign, scale)
+    assert err <= 1e-5 * ymax
+    assert err <= 4 * err_plain
+    assert float((got - own).abs().max()) <= 1e-6 * ymax
+
+
+def test_dft_launch_runs_a_named_route(dev):
+    """Under dft._forced_route, dft runs the route named where that route
+    takes n, and counts it: the dense route at n = 500, 509 and 1536, the
+    mixed kernel at a power of two, all equal to the route dft picks within
+    1e-6·max|Y|; a route that does not take n raises ValueError."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    for n, routes in ((500, ("dense",)), (509, ("dense",)),
+                      (1536, ("dense",)), (512, ("mixed", "dense"))):
+        x = torch.randn(300, n, dtype=torch.complex64, device=dev,
+                        generator=g)
+        ref = dft.dft(x, +1, 0.5)
+        for route in routes:
+            before = _route_counts()
+            with dft._forced_route(route):
+                got = dft.dft(x, +1, 0.5)
+            torch.cuda.synchronize()
+            assert _route_counts() == {k: v + (k in ("launches", route))
+                                       for k, v in before.items()}
+            tol = 1e-5 if route == "dense" else 1e-6
+            assert (float((got - ref).abs().max())
+                    <= tol * float(ref.abs().max())), (n, route)
+    for n, routes in ((509, ("radix", "mixed")), (512, ("bluestein",))):
+        x = torch.zeros((4, n), dtype=torch.complex64, device=dev)
+        for route in routes:
+            with dft._forced_route(route), pytest.raises(
+                    ValueError, match="does not take"):
+                dft.dft(x, -1, 1.0)
+
+
+def test_pallas_flagship_step_1536_on_card(dev):
+    """B = 8 at LTE's 1536-point geometry under fft_backend="pallas": K4
+    launched twice, both on the mixed route, K1 once, payloads exact and
+    equal to the CPU run."""
+    cfg = ModemConfig(fft_size=1536, num_data_subc=768, num_pilot_subc=16,
+                      cp_size=108)
+    payload = np.random.default_rng(15).integers(
+        0, 256, (8, cfg.frame_bytes), dtype=np.uint8)
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    before = _route_counts()
+    k1 = extract.extract_windows.launches
+    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+    torch.cuda.synchronize()
+    assert extract.extract_windows.launches == k1 + 1
+    assert _route_counts() == {k: v + 2 * (k in ("launches", "mixed"))
+                               for k, v in before.items()}
+    assert bool(s.found.all()) and not bool(s.frame_start.any())
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
+                                       fft_backend="pallas"))
+    res_c, _ = cpu(torch.from_numpy(payload))
+    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
 
 
 def test_dft_kernel_rejects_what_it_does_not_take(dev):

@@ -124,16 +124,50 @@ def test_dft_leading_dims_and_wrapper_on_cpu():
         tdft.dft(torch.zeros((2, 8), dtype=torch.complex64, device="meta"))
 
 
-@pytest.mark.parametrize("n,route", [(8, "dense"), (16, "radix"),
-                                     (500, "dense"), (512, "radix"),
-                                     (8192, "radix"), (16384, "dense")])
+@pytest.mark.parametrize("n,route", [
+    (8, "dense"), (16, "radix"), (500, "mixed"), (512, "radix"),
+    (8192, "radix"), (16384, "dense"), (1536, "mixed"), (600, "mixed"),
+    (448, "mixed"), (6144, "mixed"), (509, "bluestein"), (4093, "bluestein"),
+    (8191, "dense"), (0, "dense")])
 def test_dft_route_by_size(n, route):
     """The kernel is chosen by n alone: the radix FFT for every power of two
-    from 16 to 8192, the dense product for anything else."""
+    from 16 to 8192, the mixed-radix FFT for every other 7-smooth n from 16
+    to 8192, Bluestein for every other n from 16 to 4096, the dense product
+    for what is left (n = 0 too: an empty launch); each plain pass version
+    refuses the sizes its kernel does not take (the mixed one takes the
+    radix route's too), and so does a launch forced onto such a kernel."""
     assert tdft._route(n) == route
-    if route == "dense":
+    x = torch.zeros((1, n), dtype=torch.complex64)
+    if route != "radix":
         with pytest.raises(ValueError, match="power of two"):
-            tdft.dft_radix_ref(torch.zeros((1, n), dtype=torch.complex64))
+            tdft.dft_radix_ref(x)
+        with pytest.raises(ValueError, match="does not take"):
+            tdft._launch(x, -1, 1.0, "radix")
+    if route in ("bluestein", "dense"):
+        with pytest.raises(ValueError, match="7-smooth"):
+            tdft.dft_mixed_ref(x)
+    if route != "bluestein":
+        with pytest.raises(ValueError, match="is not from"):
+            tdft.dft_bluestein_ref(x)
+        with pytest.raises(ValueError, match="does not take"):
+            tdft._launch(x, -1, 1.0, "bluestein")
+    if n == 0:
+        assert tdft.dft(x).shape == x.shape
+
+
+def test_forced_route_is_scoped():
+    """_forced_route names a route for the block only, nests, and refuses a
+    name that is no route."""
+    assert tdft._forced is None
+    with tdft._forced_route("dense"):
+        with tdft._forced_route("mixed"):
+            assert tdft._forced == "mixed"
+        assert tdft._forced == "dense"
+    assert tdft._forced is None
+    with pytest.raises(ValueError, match="no route"):
+        with tdft._forced_route("fast"):
+            pass
+    assert tdft._forced is None
 
 
 def test_fft_twiddles_rounded_once():
@@ -213,6 +247,186 @@ def test_dft_radix_ref_matches_dft_pallas_and_float64(n, sign, scaled):
     want = np.asarray(dft_pallas(jnp.asarray(x), sign=sign, scale=scale))
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+# ------------------------------------- K4's mixed and Bluestein routes
+
+
+_MIXED_N = (500, 600, 1536, 6144, 448)
+_BLUESTEIN_N = (509, 1021, 4093)
+
+
+@pytest.mark.parametrize("n", _MIXED_N + _BLUESTEIN_N)
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_dft_mixed_and_bluestein_refs_match_float64(n, sign, scaled):
+    """dft_mixed_ref (the mixed kernel's passes) and dft_bluestein_ref (the
+    Bluestein kernel's chirp, filter and m-point passes) on a strided view
+    (rows of stride n + 40) against the float64 DFT: within 1e-5·max|Y|,
+    and within 4x the error of dft_ref (the 4-GEMM plain version) on the
+    same input.  The n x n planes dft_ref builds are dropped after."""
+    scale = 1.0 / np.sqrt(n) if scaled else 1.0
+    wide = _crandn(np.random.default_rng(n + 3 * sign), (3, n + 40),
+                   np.complex64)
+    view = _t(wide)[:, 40:]
+    assert view.stride() == (n + 40, 1)
+    ref_fn = tdft.dft_mixed_ref if n in _MIXED_N else tdft.dft_bluestein_ref
+    assert tdft._route(n) == ("mixed" if n in _MIXED_N else "bluestein")
+    got = ref_fn(view, sign, scale)
+    assert got.dtype == torch.complex64 and got.shape == view.shape
+    x64 = wide[:, 40:].astype(np.complex128)
+    want = (np.fft.fft(x64) if sign < 0 else np.fft.ifft(x64) * n) * scale
+    try:
+        plain = tdft.dft_ref(view, sign, scale).numpy()
+    finally:
+        tdft.dft_planes.cache_clear()
+        tfft._dft_matrix_np.cache_clear()
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-5 * np.abs(want).max()
+    assert err <= 4 * np.abs(plain - want).max()
+
+
+@pytest.mark.parametrize("n", [500, 1536, 448, 509, 1021])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_dft_mixed_and_bluestein_refs_match_dft_pallas(n, sign):
+    """The routes' plain versions against the JAX package's dft_pallas
+    (interpret mode) within 1e-5·max|Y|, leading dims kept."""
+    scale = 1.0 / n if sign > 0 else 1.0
+    x = _crandn(np.random.default_rng(n - sign), (2, 2, n), np.complex64)
+    ref_fn = (tdft.dft_mixed_ref if tdft._route(n) == "mixed"
+              else tdft.dft_bluestein_ref)
+    got = ref_fn(_t(x), sign, scale)
+    want = np.asarray(dft_pallas(jnp.asarray(x), sign=sign, scale=scale))
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_new_routes_on_cpu_run_dft_ref():
+    """On CPU tensors dft is dft_ref on every route, with no launch
+    counted."""
+    before = (tdft.dft.launches, tdft.dft.mixed_launches,
+              tdft.dft.bluestein_launches, tdft.dft.dense_launches)
+    rng = np.random.default_rng(21)
+    for n in (500, 509):
+        x = _t(_crandn(rng, (3, n), np.complex64))
+        assert torch.equal(tdft.dft(x, +1, 0.5), tdft.dft_ref(x, +1, 0.5))
+    assert (tdft.dft.launches, tdft.dft.mixed_launches,
+            tdft.dft.bluestein_launches, tdft.dft.dense_launches) == before
+
+
+def test_mixed_plans_and_twiddle_table():
+    """The mixed plan is 8s, then the power of two's remainder, then 3s, 5s
+    and 7s, multiplying to n; the kernel's twiddle table is the n-point
+    table's values (float64, rounded once) gathered r-major per pass."""
+    assert tdft._mixed_radices(1536) == (8, 8, 8, 3)
+    assert tdft._mixed_radices(500) == (4, 5, 5, 5)
+    assert tdft._mixed_radices(6144) == (8, 8, 8, 4, 3)
+    assert tdft._mixed_radices(448) == (8, 8, 7)
+    assert tdft._mixed_radices(7776) == (8, 4, 3, 3, 3, 3, 3)
+    for n in (18, 500, 600, 1536, 6144, 7168, 8000, 6561):
+        plan = tdft._mixed_radices(n)
+        assert np.prod(plan) == n and set(plan) <= {2, 3, 4, 5, 7, 8}
+        assert len(plan) <= 16      # 4 bits a radix in a 64-bit word
+    n, sign = 1536, 1
+    tw = tdft.mixed_twiddles(n, sign, CPU).numpy()
+    full = tdft.fft_twiddles(n, sign, CPU).numpy()
+    off, ns = 0, 1
+    for radix in tdft._mixed_radices(n):
+        if ns > 1:
+            block = tw[off:off + (radix - 1) * ns].reshape(radix - 1, ns)
+            step = n // (ns * radix)
+            for r in range(1, radix):
+                np.testing.assert_array_equal(block[r - 1],
+                                              full[np.arange(ns) * r * step])
+            off += (radix - 1) * ns
+        ns *= radix
+    assert off == tw.size == 7 * 8 + 7 * 64 + 2 * 512
+
+
+def test_bluestein_tables_rounded_once():
+    """The chirp exp(sign·πi·(k² mod 2n)/n) with k² mod 2n exact in int64,
+    and the filter's m-point spectrum, each computed in float64 and rounded
+    once to complex64; m the least power of two >= 2n - 1 (at least 64)."""
+    assert [tdft._bluestein_m(n) for n in (17, 509, 1021, 4093, 4096)] == [
+        64, 1024, 2048, 8192, 8192]
+    for n, sign in ((509, -1), (4093, 1)):
+        m = tdft._bluestein_m(n)
+        k = np.arange(n, dtype=np.int64)
+        c = np.exp(sign * 1j * np.pi * ((k * k) % (2 * n)) / n)
+        chirp = tdft.bluestein_chirp(n, sign, CPU).numpy()
+        np.testing.assert_array_equal(chirp, c.astype(np.complex64))
+        # the same values as the unreduced k² where float64 still holds it
+        np.testing.assert_allclose(c[:50], np.exp(sign * 1j * np.pi
+                                                  * k[:50] ** 2 / n),
+                                   rtol=0, atol=1e-12)
+        h = np.zeros(m, np.complex128)
+        h[:n] = c.conj()
+        h[m - n + 1:] = c.conj()[1:][::-1]
+        np.testing.assert_array_equal(
+            tdft.bluestein_filter(n, sign, CPU).numpy(),
+            np.fft.fft(h).astype(np.complex64))
+        assert tdft.bluestein_filter(n, sign, CPU) is tdft.bluestein_filter(
+            n, sign, CPU)
+
+
+def test_odd_radix_constants_match_the_kernel_source():
+    """csrc/dft.cu's radix-3/5/7 constants (``root``) are the float32
+    roundings of cos and sin(2πq/R) in float64, as _odd_roots computes."""
+    import re
+    from pathlib import Path
+    src = (Path(tdft.__file__).resolve().parent.parent / "csrc"
+           / "dft.cu").read_text()
+    found = re.findall(r"case (\d) \* 8 \+ (\d): return make_float2\("
+                       r"([-0-9.e]+)f, ([-0-9.e]+)f\);", src)
+    assert len(found) == 2 + 4 + 6
+    for radix, q, c, sn in found:
+        cos, sin = tdft._odd_roots(int(radix))
+        assert np.float32(c) == np.float32(cos[int(q)])
+        assert np.float32(sn) == np.float32(sin[int(q)])
+        want = np.exp(2j * np.pi * int(q) / int(radix))
+        assert np.float32(c) == np.float32(want.real)
+        assert np.float32(sn) == np.float32(want.imag)
+
+
+def _mixed_accesses(n):
+    """The shared-memory slots each pass of the mixed kernel touches per
+    warp (csrc/dft.cu: ceil(n/8) threads per row, max(1, 256 / T) rows per
+    block, two swizzled buffers of n rounded up to 16 points per row):
+    reads of j + r·n/R after the first pass, writes of expand(j, Ns, R) +
+    r·Ns before the last, butterflies j = t + b·T."""
+    t_n = -(-n // 8)
+    rows = max(1, 256 // t_n)
+    stride = -(-n // 16) * 16
+    tid = np.arange(rows * t_n)
+    lr, t = tid // t_n, tid % t_n
+    plan = tdft._mixed_radices(n)
+    out, ns = [], 1
+    for i, radix in enumerate(plan):
+        nb = n // radix
+        for b in range(-(-8 // radix)):
+            j = t + b * t_n
+            live = j < nb
+            for r in range(radix):
+                if i > 0:
+                    out.append((lr * 2 * stride + _swizzle(j + r * nb))[live])
+                if i + 1 < len(plan):
+                    d = (j // ns) * ns * radix + j % ns + r * ns
+                    out.append((lr * 2 * stride + _swizzle(d))[live])
+        ns *= radix
+    return out
+
+
+@pytest.mark.parametrize("n", [1536, 6144])
+def test_mixed_exchange_swizzle_and_banks(n):
+    """The mixed kernel's shared-memory exchanges at the 1536-point (LTE)
+    and 6144-point plans: the swizzle is a bijection on each padded row,
+    and every warp access touches 16 distinct bank pairs per half-warp."""
+    stride = -(-n // 16) * 16
+    assert sorted(_swizzle(i) for i in range(stride)) == list(range(stride))
+    for acc in _mixed_accesses(n):
+        for h in range(0, len(acc) - len(acc) % 16, 16):
+            assert len(set(acc[h:h + 16] % 16)) == 16
 
 
 # -------------------------------------------------------------- backends
