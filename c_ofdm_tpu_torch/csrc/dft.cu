@@ -19,6 +19,10 @@
 //   RX  [2304, 512], sign -1:  18.9 MB ->  5.6 us;  53 MFLOP -> 0.8 us
 //   TX  [2048, 1536], sign +1: 50.3 MB -> 15.0 us; 166 MFLOP -> 2.5 us
 //   RX  [2304, 1536], sign -1: 56.6 MB -> 16.9 us; 187 MFLOP -> 2.8 us
+// and at DVB-T2's 16K and 32K FFT sizes (B = 64 and 32 frames, CP 1/8):
+//   TX  [128, 16384] / [64, 32768], sign +1: 33.6 MB -> 10.0 us
+//   RX  [192, 16384] / [96, 32768], sign -1: 50.3 MB -> 15.0 us
+//   (5·M·n·log2 n: 367 / 393 MFLOP a step -> 5.5 / 5.9 us)
 // An FFT does 5·log2(n) / 16 = 2.8 FLOP per byte moved at n = 512 (3.3 at
 // 1536), far below the card's float32 ridge of 67e12 / 3.35e12 = 20
 // FLOP/B, so the bytes bound it and the FLOPs hide under the memory time.
@@ -28,7 +32,7 @@
 // Cooley-Tukey GEMM does O(n) or O(sqrt n) FLOPs per point, not O(log n))
 // to a kernel whose arithmetic already costs less than its memory traffic.
 //
-// Four routes, chosen by n alone (ops/dft.py::_route):
+// Five routes, chosen by n alone (ops/dft.py::_route):
 //
 // * radix, n a power of two from 16 to 8192 (the stock and wideband
 //   geometries): a Stockham (self-sorting) FFT with each row in shared
@@ -74,6 +78,30 @@
 //   6144: every exchange conflict-free), one barrier per pass.  Rows per
 //   block max(1, 256 / T); 2 x 12 KB per row at n = 1536, 128 KB at most.
 //   Plain version: ops/dft.py::dft_mixed_ref.
+// * cluster, every 7-smooth n from 8193 to 65536 that splits as n = c·L
+//   with c in {2, 4, 8} and L <= 8192 (DVB-T2's 16K and 32K, 12288):
+//   cluster_fft_kernel<c> below, a four-step FFT with one row per thread
+//   block cluster of c blocks, the row held in the cluster's distributed
+//   shared memory.  Block r loads the L points x[c·i + r] (all c blocks of
+//   a cluster read the same lines at once, so the L2 absorbs the stride and
+//   the HBM sees each byte once) and runs the mixed route's passes on them
+//   in its own shared memory (ceil(L / 8) threads, two buffers of L
+//   points); after a cluster barrier, block q reads the c values X_r[k1] of
+//   its slice of k1 from the c blocks' shared memory (map_shared_rank),
+//   multiplies X_r[k1] by exp(sign·2πi·r·k1/n) (a float64 table rounded
+//   once, ops/dft.py::cluster_twiddles), runs the c-point butterfly and
+//   writes y[k1 + L·k2] in c contiguous runs, times scale.  x and y move
+//   once; each point crosses the SM-to-SM network once.  The split
+//   (ops/dft.py::_cluster_split) takes the least c with L <= 4096, else
+//   the least with L <= 8192: 16384 = 4 x 4096, 32768 = 8 x 4096, 65536 =
+//   8 x 8192.  Blocks of L = 4096 points (512 threads, 64 KB, compiled for
+//   3 to an SM) were the fastest of the splits timed on the H100 at both
+//   steps' shapes (chip_smoke.py phase 18 times the others), so few rows
+//   still fill the card.  Launched with
+//   cudaLaunchKernelEx and a cluster dimension
+//   (capturable in a CUDA graph); c_ofdm_cluster_prepare sets the dynamic
+//   shared memory limit and checks with cudaOccupancyMaxActiveClusters
+//   that a cluster fits.  Plain version: ops/dft.py::dft_cluster_ref.
 // * bluestein, every other n from 16 to 4096 (primes such as 509): the
 //   chirp-z transform in one kernel, bluestein_kernel<log2 m> below, one
 //   row per block of m / 8 threads, m the power of two >= 2n - 1 (and
@@ -88,23 +116,24 @@
 //   y move once; 2·(ceil(log2 m / 3) - 1) exchanges in m·8 bytes of
 //   shared memory (64 KB at m = 8192).  Plain version:
 //   ops/dft.py::dft_bluestein_ref.
-// * dense, what is left (n < 16, powers of two above 8192, and non-7-smooth
-//   n above 4096): the complex GEMM dft_kernel below against W as two
-//   float32 planes [n, n] (times scale, built once per (n, sign, scale) by
-//   the wrapper).  Its own floor is 8·M·n² FLOPs on the float32 CUDA cores,
-//   so it is no route for the sizes the other kernels take.  A block
-//   computes a 64 x 64 tile of y with 256 threads, each holding 4 x 4
-//   complex accumulators; the contraction runs in chunks of 16 staged in
-//   shared memory, each chunk summed apart and then added to the
-//   accumulators (about the plain version's 4-GEMM accuracy, at 127
-//   registers).  Ragged rows, columns and chunks are zero-filled on load
-//   and masked on store.
+// * dense, what is left (n < 16, non-7-smooth n above 4096, and 7-smooth n
+//   above 8192 with no such split: odd n, n above 65536): the complex GEMM
+//   dft_kernel below against W as two float32 planes [n, n] (times scale,
+//   built once per (n, sign, scale) by the wrapper).  Its own floor is
+//   8·M·n² FLOPs on the float32 CUDA cores, so it is no route for the sizes
+//   the other kernels take.  A block computes a 64 x 64 tile of y with 256
+//   threads, each holding 4 x 4 complex accumulators; the contraction runs
+//   in chunks of 16 staged in shared memory, each chunk summed apart and
+//   then added to the accumulators (about the plain version's 4-GEMM
+//   accuracy, at 127 registers).  Ragged rows, columns and chunks are
+//   zero-filled on load and masked on store.
 //
 // Interface: plain C, loaded with ctypes (c_ofdm_tpu_torch/ops/_kernels.py).
 // Each launch goes on the caller's stream, does not synchronise and
 // allocates nothing; each function returns cudaGetLastError() after the
 // launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -522,7 +551,8 @@ __device__ __forceinline__ int mswz(int i) { return i ^ ((i >> 3) & 15); }
 
 // One pass (radix R, sub-transforms of ns points done) of one row: the
 // thread's butterflies j = t + b·T, b < ceil(8 / R), the last ones masked,
-// each read (from x in the first pass, else from the row's buffer ``in``),
+// each read (from x in the first pass, point i at xr[i·XS], else from the
+// row's buffer ``in``),
 // twiddled, transformed in registers and written to expand(j, ns, R) +
 // r·ns (in the row's other buffer ``out``, or in y times scale in the last
 // pass).  ``tw`` is this pass's block of the twiddle table, r-major:
@@ -532,7 +562,7 @@ __device__ __forceinline__ int mswz(int i) { return i ^ ((i >> 3) & 15); }
 // unrolled, to keep all of the thread's loads from x in flight; unrolled
 // in every pass (twiddle loads hoisted too), the kernel spills under the
 // 64-register cap of 1024-thread blocks.
-template <int R, bool FIRST>
+template <int R, bool FIRST, int XS>
 __device__ __forceinline__ void mixed_pass(
     const MixedPlan& p, int ns, bool last, bool live, int t,
     const float2* __restrict__ xr, const float2* __restrict__ in,
@@ -547,7 +577,7 @@ __device__ __forceinline__ void mixed_pass(
       float2 u[R];
       if constexpr (FIRST) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) u[r] = __ldg(xr + j + r * nb);
+        for (int r = 0; r < R; ++r) u[r] = __ldg(xr + (j + r * nb) * XS);
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) u[r] = in[mswz(j + r * nb)];
@@ -572,16 +602,54 @@ __device__ __forceinline__ void mixed_pass(
   if (!last) __syncthreads();
 }
 
-template <int R>
+template <int R, int XS>
 __device__ __forceinline__ void mixed_pass(
     const MixedPlan& p, int ns, bool first, bool last, bool live, int t,
     const float2* __restrict__ xr, const float2* __restrict__ in,
     float2* __restrict__ out, const float2* __restrict__ tw,
     float2* __restrict__ yr, float s, float scale) {
   if (first) {
-    mixed_pass<R, true>(p, ns, last, live, t, xr, in, out, tw, yr, s, scale);
+    mixed_pass<R, true, XS>(p, ns, last, live, t, xr, in, out, tw, yr, s,
+                            scale);
   } else {
-    mixed_pass<R, false>(p, ns, last, live, t, xr, in, out, tw, yr, s, scale);
+    mixed_pass<R, false, XS>(p, ns, last, live, t, xr, in, out, tw, yr, s,
+                             scale);
+  }
+}
+
+// Every pass of p's plan on one row: its points xr[i·XS], the row's two
+// buffers rb, the plan's twiddle table tw; the last pass writes y times
+// scale (yr), or with KEEP the row's buffer rb + ((passes - 1) & 1)·stride
+// in natural order under mswz, followed by a barrier.
+template <int XS, bool KEEP>
+__device__ __forceinline__ void mixed_passes(
+    const MixedPlan& p, bool live, int t, const float2* __restrict__ xr,
+    float2* __restrict__ rb, const float2* __restrict__ tw,
+    float2* __restrict__ yr, float s, float scale) {
+  int ns = 1;
+  for (int i = 0; i < p.passes; ++i) {
+    const int radix = static_cast<int>((p.plan >> (4 * i)) & 15);
+    const bool first = i == 0;
+    const bool last = !KEEP && i + 1 == p.passes;
+    const float2* in = rb + ((i + 1) & 1) * p.stride;
+    float2* out = rb + (i & 1) * p.stride;
+    const float2* ptw = tw;
+    if (!first) tw += (radix - 1) * ns;   // the next pass's block
+    switch (radix) {
+      case 8: mixed_pass<8, XS>(p, ns, first, last, live, t, xr, in, out,
+                                ptw, yr, s, scale); break;
+      case 4: mixed_pass<4, XS>(p, ns, first, last, live, t, xr, in, out,
+                                ptw, yr, s, scale); break;
+      case 2: mixed_pass<2, XS>(p, ns, first, last, live, t, xr, in, out,
+                                ptw, yr, s, scale); break;
+      case 3: mixed_pass<3, XS>(p, ns, first, last, live, t, xr, in, out,
+                                ptw, yr, s, scale); break;
+      case 5: mixed_pass<5, XS>(p, ns, first, last, live, t, xr, in, out,
+                                ptw, yr, s, scale); break;
+      default: mixed_pass<7, XS>(p, ns, first, last, live, t, xr, in, out,
+                                 ptw, yr, s, scale); break;
+    }
+    ns *= radix;
   }
 }
 
@@ -597,34 +665,139 @@ mixed_fft_kernel(const float2* __restrict__ x, int64_t ldx,
   const float2* xr = x + (live ? row : 0) * ldx;
   float2* yr = y + (live ? row : 0) * p.n;
   float2* rb = mbuf + 2 * lr * p.stride;   // the row's two buffers
-  int ns = 1;
-  for (int i = 0; i < p.passes; ++i) {
-    const int radix = static_cast<int>((p.plan >> (4 * i)) & 15);
-    const bool first = i == 0;
-    const bool last = i + 1 == p.passes;
-    const float2* in = rb + ((i + 1) & 1) * p.stride;
-    float2* out = rb + (i & 1) * p.stride;
-    const float2* ptw = tw;
-    if (!first) tw += (radix - 1) * ns;   // the next pass's block
-    switch (radix) {
-      case 8: mixed_pass<8>(p, ns, first, last, live, t, xr, in, out, ptw,
-                            yr, s, scale); break;
-      case 4: mixed_pass<4>(p, ns, first, last, live, t, xr, in, out, ptw,
-                            yr, s, scale); break;
-      case 2: mixed_pass<2>(p, ns, first, last, live, t, xr, in, out, ptw,
-                            yr, s, scale); break;
-      case 3: mixed_pass<3>(p, ns, first, last, live, t, xr, in, out, ptw,
-                            yr, s, scale); break;
-      case 5: mixed_pass<5>(p, ns, first, last, live, t, xr, in, out, ptw,
-                            yr, s, scale); break;
-      default: mixed_pass<7>(p, ns, first, last, live, t, xr, in, out, ptw,
-                             yr, s, scale); break;
-    }
-    ns *= radix;
-  }
+  mixed_passes<1, false>(p, live, t, xr, rb, tw, yr, s, scale);
 }
 
 constexpr int kMixedMaxSmem = 2 * 8192 * static_cast<int>(sizeof(float2));
+
+// MixedPlan for a row of n points from the plan word (4 bits a radix,
+// passes of them), one row per block of at most 1024 threads when
+// one_row; cudaErrorInvalidValue unless the radices are all in {2, 3, 4,
+// 5, 7, 8}, multiply to n and n is from 16 to 8192.
+int make_plan(long long n, unsigned long long plan, int passes, bool one_row,
+              MixedPlan* p) {
+  if (n < 16 || n > 8192 || passes < 2 || passes > 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long prod = 1;
+  for (int i = 0; i < passes; ++i) {
+    const int r = static_cast<int>((plan >> (4 * i)) & 15);
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    prod *= r;
+  }
+  if (prod != n || (passes < 16 && (plan >> (4 * passes)) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p->n = static_cast<int>(n);
+  p->t = (p->n + 7) / 8;
+  p->rows = p->t >= 256 || one_row ? 1 : 256 / p->t;
+  p->stride = (p->n + 15) / 16 * 16;
+  p->passes = passes;
+  p->plan = plan;
+  return 0;
+}
+
+// ------------------------------------------------------------- cluster
+
+// Blocks per SM the cluster kernel of MAXT threads is compiled for (the
+// register cap 65536 / (MAXT·blocks)): uncapped, it takes more registers
+// than the 42 a thread that 3 blocks of 512 threads allow, so they fit only
+// 2 to an SM where their 64 KB of shared memory allows 3; capped for 3 (40
+// registers, no spills) the 16K and 32K steps ran faster on the H100.
+__host__ __device__ constexpr int cluster_min_blocks(int maxt) {
+  return maxt >= 1024 ? 1 : 3;
+}
+
+// One row of n = C·L points per cluster of C blocks (cluster rank q =
+// blockIdx.x mod C, row blockIdx.x / C), L·8 bytes per buffer, two buffers
+// a block.  With x index C·i + r and y index k1 + L·k2 (i, k1 < L;
+// r, k2 < C):  y[k1 + L·k2] = Σ_r exp(s·2πi·r·k2/C) · exp(s·2πi·r·k1/n) ·
+// X_r[k1],  X_r the L-point DFT of x[C·i + r].  Block r computes X_r in its
+// shared memory (the mixed kernel's passes, first pass reading x at stride
+// C); after a cluster barrier block q reads, for its k1 in [q·S, q·S + S)
+// (S = ceil(L / C)), the C values X_r[k1] from the C blocks' shared memory
+// (distributed shared memory), multiplies X_r[k1] by ctw[(r - 1)·L + k1] =
+// exp(s·2πi·r·k1/n), runs the C-point butterfly and writes y[k1 + L·k2]
+// times scale: C runs of S consecutive points.  A second cluster barrier
+// keeps every block's buffers alive until no block reads them.
+template <int C, int MAXT>
+__global__ void __launch_bounds__(MAXT, cluster_min_blocks(MAXT))
+cluster_fft_kernel(const float2* __restrict__ x, int64_t ldx,
+                   const float2* __restrict__ tw,
+                   const float2* __restrict__ ctw, float2* __restrict__ y,
+                   MixedPlan p, float s, float scale) {
+  extern __shared__ __align__(16) float2 mbuf[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int64_t row = static_cast<int64_t>(blockIdx.x) / C;
+  const int t = threadIdx.x;
+  const int L = p.n;
+  mixed_passes<C, true>(p, true, t, x + row * ldx + q, mbuf, tw, nullptr, s,
+                        1.f);
+  const float2* fin = mbuf + ((p.passes - 1) & 1) * p.stride;
+  cluster.sync();   // every block's X_r is in its shared memory
+
+  const int span = (L + C - 1) / C;
+  const int k_end = min((q + 1) * span, L);
+  float2* yr = y + row * L * C;
+  for (int k1 = q * span + t; k1 < k_end; k1 += p.t) {
+    float2 u[C];
+    const int at = mswz(k1);
+    u[0] = *cluster.map_shared_rank(fin + at, 0);
+#pragma unroll
+    for (int r = 1; r < C; ++r) {
+      u[r] = cmul(*cluster.map_shared_rank(fin + at, r),
+                  __ldg(ctw + (r - 1) * L + k1));
+    }
+    dft_small<C>(u, s);
+#pragma unroll
+    for (int k2 = 0; k2 < C; ++k2) {
+      yr[k1 + k2 * L] = make_float2(u[k2].x * scale, u[k2].y * scale);
+    }
+  }
+  cluster.sync();   // no block leaves while another reads its buffers
+}
+
+using ClusterKernel = void (*)(const float2*, int64_t, const float2*,
+                               const float2*, float2*, MixedPlan, float,
+                               float);
+
+// The instance for c blocks a cluster and blocks of `threads`: compiled
+// for 512 or 1024 threads (the less that holds them); null for another c.
+template <int C>
+ClusterKernel cluster_kernel_of(int threads) {
+  if (threads <= 512) return cluster_fft_kernel<C, 512>;
+  return cluster_fft_kernel<C, 1024>;
+}
+
+ClusterKernel cluster_kernel(int c, int threads) {
+  switch (c) {
+    case 2: return cluster_kernel_of<2>(threads);
+    case 4: return cluster_kernel_of<4>(threads);
+    case 8: return cluster_kernel_of<8>(threads);
+    default: return nullptr;
+  }
+}
+
+cudaLaunchConfig_t cluster_config(const MixedPlan& p, int c, unsigned blocks,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(p.t);
+  cfg.dynamicSmemBytes = 2 * p.stride * sizeof(float2);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
 
 // ------------------------------------------------------------ bluestein
 
@@ -800,28 +973,12 @@ extern "C" int c_ofdm_mixed_fft(const void* x, long long ldx, const void* tw,
                                 void* y, long long m, long long n,
                                 unsigned long long plan, int passes, int sign,
                                 float scale, void* stream) {
-  if (m <= 0 || ldx < 0 || n < 16 || n > 8192 || passes < 2 || passes > 16 ||
-      (sign != 1 && sign != -1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  long long prod = 1;
-  for (int i = 0; i < passes; ++i) {
-    const int r = static_cast<int>((plan >> (4 * i)) & 15);
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    prod *= r;
-  }
-  if (prod != n || (passes < 16 && (plan >> (4 * passes)) != 0)) {
+  if (m <= 0 || ldx < 0 || (sign != 1 && sign != -1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MixedPlan p;
-  p.n = static_cast<int>(n);
-  p.t = (p.n + 7) / 8;
-  p.rows = p.t >= 256 ? 1 : 256 / p.t;
-  p.stride = (p.n + 15) / 16 * 16;
-  p.passes = passes;
-  p.plan = plan;
+  const int rc = make_plan(n, plan, passes, false, &p);
+  if (rc != 0) return rc;
   const long long blocks = (m + p.rows - 1) / p.rows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
@@ -831,6 +988,61 @@ extern "C" int c_ofdm_mixed_fft(const void* x, long long ldx, const void* tw,
       static_cast<const float2*>(x), ldx, static_cast<const float2*>(tw),
       static_cast<float2*>(y), m, p, static_cast<float>(sign), scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The set-up c_ofdm_cluster_fft needs on the current device for c blocks
+// a cluster and rows of L points (plan, passes: L's mixed plan): the
+// dynamic shared memory limit, then an occupancy check; *clusters is how
+// many such clusters fit on the device at once.
+extern "C" int c_ofdm_cluster_prepare(int c, long long L,
+                                      unsigned long long plan, int passes,
+                                      int* clusters) {
+  MixedPlan p;
+  const int rc = make_plan(L, plan, passes, true, &p);
+  if (rc != 0) return rc;
+  const ClusterKernel kernel = cluster_kernel(c, p.t);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMixedMaxSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(p, c, c, nullptr, &attr);
+  e = cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return *clusters > 0 ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
+}
+
+// x [m rows, row stride ldx] complex64, tw L's mixed twiddle table
+// (ops/dft.py::mixed_twiddles(L)), ctw [(c - 1)·L] complex64
+// (exp(sign·2πi·r·k1/(c·L)), r major from 1; ops/dft.py::cluster_twiddles),
+// y [m, c·L] complex64 (contiguous); c in {2, 4, 8}, L from 16 to 8192 with
+// the plan of c_ofdm_mixed_fft, after c_ofdm_cluster_prepare(c, L, ...).
+extern "C" int c_ofdm_cluster_fft(const void* x, long long ldx,
+                                  const void* tw, const void* ctw, void* y,
+                                  long long m, int c, long long L,
+                                  unsigned long long plan, int passes,
+                                  int sign, float scale, void* stream) {
+  if (m <= 0 || ldx < 0 || (sign != 1 && sign != -1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MixedPlan p;
+  const int rc = make_plan(L, plan, passes, true, &p);
+  if (rc != 0) return rc;
+  const ClusterKernel kernel = cluster_kernel(c, p.t);
+  if (kernel == nullptr || m > 0x7fffffffLL / c) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      p, c, static_cast<unsigned>(m * c), static_cast<cudaStream_t>(stream),
+      &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float2*>(x), static_cast<int64_t>(ldx),
+      static_cast<const float2*>(tw), static_cast<const float2*>(ctw),
+      static_cast<float2*>(y), p, static_cast<float>(sign), scale);
+  const cudaError_t last = cudaGetLastError();   // cleared either way
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // The set-up c_ofdm_bluestein's m needs on the current device (see

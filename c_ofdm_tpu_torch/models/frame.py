@@ -102,11 +102,11 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
     ``fft.dft_basis``).  The partial-DFT bases are built only for the
     backends that read them: ``rx_basis``, ``tx_basis`` and
     ``tx_pilot_time`` for the matmul backends, ``cfo_basis`` for all but
-    ``xla`` and ``ct*``; the bin gathers (``pilot_idx``, ``data_idx``,
-    ``tx_bin_src``) for the other backends on a layout that is not the
-    canonical one.  No step makes a constant from host data while it runs:
-    a CUDA-graph capture refuses the host-to-device copy (see
-    ``utils/graphs.py``)."""
+    ``xla`` and ``ct*`` up to a 32768-point preamble; the bin gathers
+    (``pilot_idx``, ``data_idx``, ``tx_bin_src``) for the other backends on
+    a layout that is not the canonical one.  No step makes a constant from
+    host data while it runs: a CUDA-graph capture refuses the host-to-device
+    copy (see ``utils/graphs.py``)."""
     rdt = real_dtype(dtype)
 
     def pair(w):
@@ -146,7 +146,7 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         "chan_i": real(chan_i),
         "chan_k": real(chan_k),
     }
-    if cfo.uses_partial_spectrum(fft_backend):
+    if cfo.uses_partial_spectrum(fft_backend, cfg.preamble_len):
         tensors["cfo_basis"] = cfo.cfo_basis(cfg.preamble_len, segs, device,
                                              rdt)
     if fft_backend not in fft.MATMUL_BACKENDS and not \

@@ -35,26 +35,33 @@ def cfo_basis(preamble_len: int, segments, device,
                             device=device, rdt=rdt)
 
 
-def uses_partial_spectrum(backend: str) -> bool:
+def uses_partial_spectrum(backend: str, preamble_len: int) -> bool:
     """Whether ``pilot_freq_shift`` projects onto the inspected bins (the
     spec then holds ``cfo_basis``) rather than transforming the whole
-    preamble: every backend but ``xla`` and ``ct*``.  The ct backends keep
-    the FFT because preamble_len (fft + cp per symbol) is never a power of
-    two, and at wideband sizes the partial product over ~size/2 inspected
-    bins costs more than the rest of the step."""
-    return backend != "xla" and not backend.startswith("ct")
+    preamble: every backend but ``xla`` and ``ct*``, up to a preamble of
+    ``fft.MAX_DEVICE_BASIS_N`` points.  The ct backends keep the FFT
+    because preamble_len (fft + cp per symbol) is never a power of two, and
+    at wideband sizes the partial product over ~size/2 inspected bins costs
+    more than the rest of the step.  Past ``fft.MAX_DEVICE_BASIS_N`` points
+    (DVB-T2's 32K FFT: 36 864) every backend takes the FFT, by rule: the
+    basis's int32 phase index overflows there and the JAX package's partial
+    DFT asserts, so the projection has no reference at such sizes.  The
+    switch is that limit, not a size where one method was measured to
+    overtake the other."""
+    return (backend != "xla" and not backend.startswith("ct")
+            and preamble_len <= fftops.MAX_DEVICE_BASIS_N)
 
 
 def pilot_freq_shift(spec, preamble_sig: torch.Tensor) -> torch.Tensor:
     """Coarse CFO (cycles/sample) from pilot peaks of the fftshifted preamble
     spectrum (`OFDM/Frame.hpp:285-337`).  preamble_sig [..., preamble_len]
-    -> [...].  ``xla`` and ``ct*``: the full forward FFT (``torch.fft``,
-    whatever the spec's backend), fftshifted, one argmax per window.
-    Others: one full-precision partial-DFT product onto only the bins the
-    peak-search windows inspect."""
+    -> [...].  Where ``uses_partial_spectrum`` is false: the full
+    forward FFT (``torch.fft``, whatever the spec's backend), fftshifted,
+    one argmax per window.  Others: one full-precision partial-DFT product
+    onto only the bins the peak-search windows inspect."""
     size = spec.cfg.preamble_len
     segs = spec.cfo_segments
-    if uses_partial_spectrum(spec.fft_backend):
+    if uses_partial_spectrum(spec.fft_backend, size):
         amp = fftops.complex_matmul(preamble_sig[..., :size],
                                     spec.tensors["cfo_basis"]).abs()
         peaks = []

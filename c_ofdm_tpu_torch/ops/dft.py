@@ -3,7 +3,7 @@
 Counterpart of ``c_ofdm_tpu/ops/pallas_fft.py`` (the Pallas TPU kernel
 ``_dft_kernel``, public ``dft_pallas``), reached through
 ``ops.fft.fft_fwd`` / ``ifft_unnorm`` under ``fft_backend="pallas"`` for
-complex64 inputs.  On a CUDA complex64 tensor ``dft`` launches one of four
+complex64 inputs.  On a CUDA complex64 tensor ``dft`` launches one of five
 hand-written Hopper kernels in ``csrc/dft.cu``, chosen by n alone
 (``_route``):
 
@@ -11,22 +11,30 @@ hand-written Hopper kernels in ``csrc/dft.cu``, chosen by n alone
   of two from 16 to 8192;
 * ``mixed``: the same scheme with a runtime plan of radices 8, 4, 2, 3, 5
   and 7, for every other 7-smooth n (2^a·3^b·5^c·7^d) from 16 to 8192;
+* ``cluster``: a four-step FFT, one row per thread-block cluster of c
+  blocks held in the cluster's distributed shared memory, for every
+  7-smooth n from 8193 to 65536 that splits as n = c·L, c in {2, 4, 8},
+  L <= 8192 (DVB-T2's 16K and 32K);
 * ``bluestein``: the chirp-z transform, one row per block, two power-of-two
   FFTs of m >= 2n - 1 points in shared memory, for every other n from 16
   to 4096;
 * ``dense``: the complex GEMM against the n x n twiddle planes, for what is
-  left (n < 16, powers of two above 8192, non-7-smooth n above 4096).
+  left (n < 16, non-7-smooth n above 4096, 7-smooth n above 8192 with no
+  such split: odd n, n above 65536).
 
 Each launch adds one to ``dft.launches`` and to ``dft.<route>_launches``.
-On a CPU tensor ``dft`` runs the plain version ``dft_ref`` (4 real float32
-GEMMs on the twiddle planes, as the Pallas kernel computes), whatever the
-route.  Anything else raises; a failed launch raises too, with no fallback.
+On a CPU tensor ``dft`` runs a plain version: ``dft_cluster_ref`` at the
+sizes the cluster route takes (the twiddle planes of n = 32768 alone are
+8.6 GB), ``dft_ref`` (4 real float32 GEMMs on the twiddle planes, as the
+Pallas kernel computes) at every other n.  Anything else raises; a failed
+launch raises too, with no fallback.
 
-``dft_radix_ref``, ``dft_mixed_ref`` and ``dft_bluestein_ref`` are the
-kernels' arithmetic in plain PyTorch (the same passes, index maps and
-float32 tables); the CPU tests hold them against the float64 DFT and
-``dft_pallas`` and the card's tests hold each kernel against its own.  No
-path of the modem calls them.
+``dft_radix_ref``, ``dft_mixed_ref``, ``dft_cluster_ref`` and
+``dft_bluestein_ref`` are the kernels' arithmetic in plain PyTorch (the
+same passes, index maps and float32 tables); the CPU tests hold them
+against the float64 DFT and ``dft_pallas`` (or, past 8192, the JAX
+package's ``ct_dft``) and the card's tests hold each kernel against its
+own.  Only ``dft_cluster_ref`` is on a path of the modem, the CPU one.
 """
 
 from __future__ import annotations
@@ -45,7 +53,10 @@ from . import _kernels, fft
 RADIX_MIN_N = 16      # n / 8 threads per row, 8 points each
 RADIX_MAX_N = 8192    # n / 8 = 1024 threads, the most a block can have
 BLUESTEIN_MAX_N = 4096  # m = 8192 points, 64 KB of shared memory
-ROUTES = ("radix", "mixed", "bluestein", "dense")
+CLUSTER_MAX_N = 65536   # 8 blocks (the portable cluster size) of 8192 points
+CLUSTER_SPLITS = (2, 4, 8)  # blocks a cluster, in the order tried
+CLUSTER_BEST_L = 4096       # points a block where a split allows it
+ROUTES = ("radix", "mixed", "cluster", "bluestein", "dense")
 
 
 def _smooth(n: int) -> bool:
@@ -54,6 +65,20 @@ def _smooth(n: int) -> bool:
         while n % p == 0:
             n //= p
     return n == 1
+
+
+def _cluster_split(n: int) -> tuple[int, int] | None:
+    """(c, L) with n = c·L for the cluster route, for a 7-smooth n from
+    8193 to 65536: the first c of ``CLUSTER_SPLITS`` that divides n with
+    L <= 4096, else the first with L <= 8192; None where no c divides n so.
+    16384 = 4 x 4096, 32768 = 8 x 4096, 65536 = 8 x 8192: blocks of 4096
+    points were the fastest split on the H100 at the 16K and 32K steps
+    (``csrc/dft.cu``)."""
+    if not (RADIX_MAX_N < n <= CLUSTER_MAX_N and _smooth(n)):
+        return None
+    fits = [(c, n // c) for c in CLUSTER_SPLITS if n % c == 0]
+    return next((s for s in fits if s[1] <= CLUSTER_BEST_L),
+                next((s for s in fits if s[1] <= RADIX_MAX_N), None))
 
 
 def _fits(route: str, n: int) -> bool:
@@ -65,6 +90,8 @@ def _fits(route: str, n: int) -> bool:
         return RADIX_MIN_N <= n <= RADIX_MAX_N and n & (n - 1) == 0
     if route == "mixed":
         return RADIX_MIN_N <= n <= RADIX_MAX_N and _smooth(n)
+    if route == "cluster":
+        return _cluster_split(n) is not None
     if route == "bluestein":
         return RADIX_MIN_N <= n <= BLUESTEIN_MAX_N and not _smooth(n)
     return route == "dense"
@@ -73,7 +100,9 @@ def _fits(route: str, n: int) -> bool:
 def _route(n: int) -> str:
     """The first of ``ROUTES`` whose kernel takes n: "radix" for a power of
     two from 16 to 8192, "mixed" for any other 7-smooth n up to 8192,
-    "bluestein" for any other n up to 4096, else "dense"."""
+    "cluster" for a 7-smooth n from 8193 to 65536 with a split n = c·L (c
+    in 2, 4, 8; L <= 8192), "bluestein" for any other n up to 4096, else
+    "dense"."""
     return next(r for r in ROUTES if _fits(r, n))
 
 
@@ -307,6 +336,44 @@ def dft_mixed_ref(x: torch.Tensor, sign: int = -1,
     return (data * scale).reshape(x.shape)
 
 
+@graphs.device_cache(maxsize=16)
+def cluster_twiddles(n: int, c: int, sign: int,
+                     device: torch.device) -> torch.Tensor:
+    """The cluster kernel's twiddles between its two steps for the split
+    n = c·L: exp(sign·2πi·r·k1/n) for r = 1 .. c - 1 (major) and k1 < L,
+    the values of ``fft_twiddles(n, sign)`` (float64, rounded once) at
+    r·k1 < n, complex64 [(c - 1)·L] on ``device``; cached."""
+    idx = np.arange(1, c)[:, None] * np.arange(n // c)
+    return torch.from_numpy(_twiddles_np(n, sign)[idx.reshape(-1)]).to(device)
+
+
+def dft_cluster_ref(x: torch.Tensor, sign: int = -1,
+                    scale: float = 1.0) -> torch.Tensor:
+    """The cluster kernel's arithmetic in plain PyTorch: x [..., n]
+    complex, n a size the cluster route takes -> complex64 [..., n].
+
+    With (c, L) = ``_cluster_split(n)``, input index c·i + r and output
+    index k1 + L·k2: block r's L-point FFT of x[c·i + r] (``dft_mixed_ref``,
+    the same passes and table as the kernel's), X_r[k1] times
+    ``cluster_twiddles`` (exp(sign·2πi·r·k1/n), r > 0), the c-point
+    butterfly across r for each k1 (the kernels' ``_dft_small``) and
+    scale."""
+    n = x.shape[-1]
+    if not _fits("cluster", n):
+        raise ValueError(f"dft_cluster_ref: n={n} is not 7-smooth from "
+                         f"{RADIX_MAX_N + 1} to {CLUSTER_MAX_N} with a split "
+                         f"n = c·L, c in {CLUSTER_SPLITS}, L <= {RADIX_MAX_N}")
+    c, L = _cluster_split(n)
+    data = _rows(x).to(torch.complex64)
+    m = data.shape[0]
+    u = data.reshape(m, L, c).transpose(1, 2).reshape(m * c, L)
+    z = dft_mixed_ref(u, sign).reshape(m, c, L)
+    tw = cluster_twiddles(n, c, sign, x.device).reshape(c - 1, L)
+    parts = [z[:, 0]] + [z[:, r] * tw[r - 1] for r in range(1, c)]
+    y = torch.stack(_dft_small(parts, sign), 1)           # [m, k2, k1]
+    return (y.reshape(m, n) * scale).reshape(x.shape)
+
+
 def _bluestein_m(n: int) -> int:
     """The convolution length: the least power of two >= 2n - 1, and at
     least 64 (the smallest size the kernel is built for)."""
@@ -383,8 +450,12 @@ def _lib() -> ctypes.CDLL:
                                   i, i, f, vp]),
             ("c_ofdm_bluestein", [vp, ll, vp, vp, vp, vp, vp, ll, ll, ll, f,
                                   vp]),
+            ("c_ofdm_cluster_fft", [vp, ll, vp, vp, vp, ll, i, ll,
+                                    ctypes.c_ulonglong, i, i, f, vp]),
             ("c_ofdm_fft_prepare", [ll]),
             ("c_ofdm_mixed_prepare", []),
+            ("c_ofdm_cluster_prepare", [i, ll, ctypes.c_ulonglong, i,
+                                        ctypes.POINTER(i)]),
             ("c_ofdm_bluestein_prepare", [ll])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -394,21 +465,42 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _plan_word(n: int) -> tuple[int, int]:
+    """The mixed plan of n as the kernels take it: (4 bits a radix, first
+    pass lowest; passes)."""
+    plan = _mixed_radices(n)
+    return sum(r << (4 * i) for i, r in enumerate(plan)), len(plan)
+
+
 @functools.cache
-def _prepare(route: str, n: int, device_index: int) -> None:
+def _prepare(route: str, device_index: int, *size: int) -> int | None:
     """A kernel's once-per-(process, device, size) set-up, its dynamic
     shared memory limit (``c_ofdm_*_prepare``): the radix kernel of n, the
-    mixed kernel (n ignored), the Bluestein kernel of m = n.  Runs at the
-    first launch on the device, which is never inside a CUDA-graph capture:
-    the captured call's warm-up launches first (``utils/graphs.py``)."""
+    mixed kernel (no size), the cluster kernel of (c, L), which also checks
+    that one of its clusters fits on the device and returns how many fit at
+    once (``cudaOccupancyMaxActiveClusters``), the Bluestein kernel of m.
+    Runs at the first launch on the device, which is never inside a
+    CUDA-graph capture: the captured call's warm-up launches first
+    (``utils/graphs.py``)."""
     lib = _lib()
+    fits = None
     with torch.cuda.device(device_index):
-        rc = {"radix": lambda: lib.c_ofdm_fft_prepare(n),
-              "mixed": lib.c_ofdm_mixed_prepare,
-              "bluestein": lambda: lib.c_ofdm_bluestein_prepare(n)}[route]()
+        if route == "cluster":
+            c, L = size
+            fits = ctypes.c_int(0)
+            rc = lib.c_ofdm_cluster_prepare(c, L, *_plan_word(L),
+                                            ctypes.byref(fits))
+            fits = fits.value
+        else:
+            rc = {"radix": lambda: lib.c_ofdm_fft_prepare(*size),
+                  "mixed": lib.c_ofdm_mixed_prepare,
+                  "bluestein": lambda: lib.c_ofdm_bluestein_prepare(*size)
+                  }[route]()
     if rc != 0:
-        raise RuntimeError(f"dft {route} kernel set-up failed for n={n}: "
-                           f"{lib.c_ofdm_dft_error_string(rc).decode()}")
+        msg = lib.c_ofdm_dft_error_string(rc).decode()
+        raise RuntimeError(f"dft {route} kernel set-up failed for size "
+                           f"{size}: {msg}")
+    return fits
 
 
 def _launch(x: torch.Tensor, sign: int, scale: float,
@@ -431,20 +523,26 @@ def _launch(x: torch.Tensor, sign: int, scale: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (x2.data_ptr(), x2.stride(0))
         if route == "radix":
-            _prepare(route, n, dev.index)
+            _prepare(route, dev.index, n)
             rc = lib.c_ofdm_fft(*args, fft_twiddles(n, sign, dev).data_ptr(),
                                 out.data_ptr(), x2.shape[0], n, sign,
                                 float(scale), stream)
         elif route == "mixed":
-            _prepare(route, 0, dev.index)
-            plan = _mixed_radices(n)
-            word = sum(r << (4 * i) for i, r in enumerate(plan))
+            _prepare(route, dev.index)
             rc = lib.c_ofdm_mixed_fft(
                 *args, mixed_twiddles(n, sign, dev).data_ptr(), out.data_ptr(),
-                x2.shape[0], n, word, len(plan), sign, float(scale), stream)
+                x2.shape[0], n, *_plan_word(n), sign, float(scale), stream)
+        elif route == "cluster":
+            c, L = _cluster_split(n)
+            _prepare(route, dev.index, c, L)
+            rc = lib.c_ofdm_cluster_fft(
+                *args, mixed_twiddles(L, sign, dev).data_ptr(),
+                cluster_twiddles(n, c, sign, dev).data_ptr(), out.data_ptr(),
+                x2.shape[0], c, L,
+                *_plan_word(L), sign, float(scale), stream)
         elif route == "bluestein":
             m = _bluestein_m(n)
-            _prepare(route, m, dev.index)
+            _prepare(route, dev.index, m)
             rc = lib.c_ofdm_bluestein(
                 *args, bluestein_chirp(n, sign, dev).data_ptr(),
                 bluestein_filter(n, sign, dev).data_ptr(),
@@ -473,10 +571,11 @@ def dft(x: torch.Tensor, sign: int = -1, scale: float = 1.0) -> torch.Tensor:
     ``dft.launches`` and to ``dft.<route>_launches``.  Rows may be strided
     (a view such as ``sig.reshape(B, S, L)[..., cp:]`` is read in place);
     the last axis must have stride 1 or is copied.  CPU tensors:
-    ``dft_ref``.
+    ``dft_cluster_ref`` at the sizes of the cluster route, else ``dft_ref``.
     """
     if x.device.type == "cpu":
-        return dft_ref(x, sign, scale)
+        plain = dft_cluster_ref if _fits("cluster", x.shape[-1]) else dft_ref
+        return plain(x, sign, scale)
     if x.device.type != "cuda":
         raise ValueError(f"dft: no kernel for device {x.device}")
     if x.dtype != torch.complex64:
@@ -487,5 +586,6 @@ def dft(x: torch.Tensor, sign: int = -1, scale: float = 1.0) -> torch.Tensor:
 dft.launches = 0
 dft.radix_launches = 0
 dft.mixed_launches = 0
+dft.cluster_launches = 0
 dft.bluestein_launches = 0
 dft.dense_launches = 0

@@ -11,7 +11,9 @@ frames of 27 904 samples, bench.py's wideband geometry); and the streaming
 receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 246 656 samples, S = 4 consecutive buffers at C = 1, 8 and 64 channels,
 and C = 8 under pallas); the flagship step and the streaming receiver at
-LTE's 1536-point geometry under pallas (K4's mixed route); and the
+LTE's 1536-point geometry under pallas (K4's mixed route); the flagship
+step at DVB-T2's 16K and 32K FFT sizes under pallas (K4's cluster route);
+and the
 MAC-framed link loop (``Mac``, the channel
 simulator ``apply_channel``, the batch and streaming receivers); and the
 command-line apps (``tx``, ``rx``, ``loopback``, ``ber-sweep``,
@@ -21,7 +23,8 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
   1 device    the card, its name and power limit (nvidia-smi)
   2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
               bodies, and the empty kernel) and csrc/dft.cu (K4's radix,
-              mixed, Bluestein and dense routes), one nvcc each for sm_90a,
+              mixed, cluster, Bluestein and dense routes), one nvcc each for
+              sm_90a,
               started together; ptxas registers and spills of every
               instantiation
   3 kernel    K1 against its plain PyTorch version, bit for bit
@@ -58,8 +61,11 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               600 scaled, 6144 and 448 (mixed route); 509 and 4093
               (Bluestein, m = 1024 and 8192) and the 510 step's TX
               [2048, 510] sign +1 and RX view (row stride 638, Bluestein,
-              m = 1024); 8191 (dense); error <= 1e-5
-              max|Y| and <= 4x the plain version's; radix, mixed and
+              m = 1024); 8191 (dense); the DVB-T2 steps' TX [128, 16384] /
+              [64, 32768] sign +1 and RX views (row strides 18432 / 36864),
+              12288 scaled and 65536 (cluster); error <= 1e-5
+              max|Y| and <= 4x the plain version's (dft_ref; the cluster
+              route's own); radix, mixed, cluster and
               Bluestein cases also within 1e-6 max|Y| of the route's own
               plain version; one launch on the route each took, and no
               twiddle planes built on the FFT routes
@@ -76,7 +82,7 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
  18 dft-timing  K4 at the step's two shapes: device time beside its bound
               (a DFT's bytes and FFT operations), dft_radix_ref, the plain
               version, torch.fft (the library call) and complex torch.matmul
-              with the cached W (torch.profiler), and the mixed kernel on
+              with the cached W, and the mixed kernel on
               the same inputs, with the L2 warm (one input) and cold (12
               inputs in turn); the same for the pallas streaming buffer's
               one launch, [2952, 512]; then, in turns with the dense route,
@@ -84,7 +90,12 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               mixed route at [2304, 500] and at the 1536 step's TX
               [2048, 1536] and RX view [2304, 1536], the Bluestein route at
               [2304, 509] and at the 510 step's TX [2048, 510] and RX view
-              [2304, 510]
+              [2304, 510], the cluster route at the 16K and 32K steps' TX
+              and RX view (the dense route at 16K only, its 4.3 GB of
+              planes dropped after; the cluster route's other splits
+              beside it, cold), per step against the 25.04 us bound;
+              every column's device time by CUDA events around one CUDA
+              graph of its calls
  19 gather-timing  the card's floor per launch (an empty kernel on grids
               (1), (49, 4) and (41, 23) and on the C = 1 path's own two);
               then, in turns within this one call, the scalar body, the
@@ -101,8 +112,10 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               of noisy inputs equal to the CPU run in every field; crc16
               against the table walk in numpy on random lengths; one write
               and one read_soft under set_sync_debug_mode("error"); CUDA
-              kernels and device time per call of write, read_soft, crc16
-              and the rejected byte-serial table walk (torch.profiler)
+              kernels per call of write, read_soft, crc16 and the rejected
+              byte-serial table walk (the nodes of the call captured as a
+              CUDA graph: crc16's the same at two byte counts) and their
+              device time (torch.profiler)
  21 link-batch  B = 256 payloads -> Mac.write -> transmit -> apply_channel
               (four sets of 64 frames: the channels of
               tests/test_mac_channel.py:64-103, noise from a generator on the
@@ -168,7 +181,11 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               (K1 + 2 K4 radix), at LTE's 1536-point geometry under pallas
               (K1 + 2 K4 mixed; then the same step captured on the dense
               route, the before column) and at a 510-point one (K1 + 2 K4
-              Bluestein), the wideband step at B = 128 under ct (K1 wide);
+              Bluestein), at DVB-T2's 16K (B = 64) and 32K (B = 32) sizes
+              (K1 + 2 K4 cluster; impaired captures, offsets in [0, 4096],
+              CFO 1e-5 / 2e-6, 30 dB, decoded exactly, graph = eager; the
+              16K step also captured on the dense route), the wideband step
+              at B = 128 under ct (K1 wide);
               StreamingReceiver on phase 8's rings, S = 4, gated, at C = 1
               (K2 twice), 8 and 64 (K3 twice), and C = 8 under pallas (K3
               twice + K4), and at C = 1 on 4 buffers of the 1536 geometry's
@@ -186,8 +203,9 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               (CUDA events), device time, idle share, capture seconds, the
               graph pool's memory and the copy launches around a replay
 
-Then one JSON line describing the kernels (K4 as "dft", and its mixed and
-Bluestein routes as "dft_mixed" and "dft_bluestein"), and last one JSON line
+Then one JSON line describing the kernels (K4 as "dft", and its mixed,
+cluster and Bluestein routes as "dft_mixed", "dft_cluster" and
+"dft_bluestein"), and last one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  ``--profile FILE`` also writes a
 torch.profiler table of 10 flagship steps to FILE, one of 10 streaming
@@ -223,6 +241,14 @@ LTE1536 = dict(fft_size=1536, num_data_subc=768, num_pilot_subc=16,
 # K4's Bluestein route, m = 1024
 NONSMOOTH = dict(fft_size=510, num_data_subc=256, num_pilot_subc=8,
                  cp_size=128)
+# the wideband layout at DVB-T2's 16K and 32K FFT sizes with its 1/8 guard
+# interval (ETSI EN 302 755): K4's cluster route, B = 64 and 32 frames a
+# step (3.56 and 3.55 M samples, as the wideband cell's 3.57 M)
+DVBT2_16K = dict(fft_size=16384, num_data_subc=8192, num_pilot_subc=64,
+                 cp_size=2048, num_symb=2, pr_sin_len=1024, mod_type=6)
+DVBT2_32K = dict(fft_size=32768, num_data_subc=16384, num_pilot_subc=128,
+                 cp_size=4096, num_symb=2, pr_sin_len=2048, mod_type=6)
+B_16K, B_32K = 64, 32
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -299,6 +325,96 @@ def device_ms(fn, reps, tries=5, want=None):
                        f"or missed launches in {tries} sessions (last: "
                        f"{len(events)} events, kernels per call {seen}, want "
                        f"{want}, {sorted(e.key for e in events)[:12]})")
+
+
+_SIDE = {}
+
+
+def side_stream():
+    """The one side stream this script captures CUDA graphs on."""
+    dev = torch.cuda.current_device()
+    if dev not in _SIDE:
+        _SIDE[dev] = torch.cuda.Stream()
+    return _SIDE[dev]
+
+
+def captured(fn, reps, keep_graph=False):
+    """fn(0) .. fn(reps - 1) captured into one CUDA graph on the side
+    stream, after a first call there (a library's lazy set-up, such as a
+    cuBLAS workspace, is never captured).  A call that synchronises with
+    the host or copies from it raises."""
+    s = side_stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn(0)
+    s.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    with torch.cuda.graph(g, stream=s):
+        for i in range(reps):
+            fn(i)
+    return g
+
+
+def graph_ms(fn, reps):
+    """Device milliseconds per call of fn(i) over reps calls captured into
+    one CUDA graph: CUDA events around a replay, the median of 3 after one
+    untimed replay.  The events see the calls' kernels back to back as the
+    card runs them, with no host dispatch between them and none of the
+    records torch.profiler loses late in a run (up to 4 of 6 10 ms dense
+    launches, or every one of 24 short ones, in some windows); the card's
+    own gap between two launches counts, alike in every column timed so
+    (phase 18: K4, its plain versions, torch.fft and the dense route)."""
+    g = captured(fn, reps)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    g.replay()
+    times = []
+    for _ in range(3):
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    g.reset()
+    return statistics.median(times)
+
+
+# cuGraphNodeGetType's CUgraphNodeType values
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait event", 7: "record event",
+              10: "mem alloc", 11: "mem free"}
+
+
+def graph_kernels(fn):
+    """{node kind: count} of one call of fn(0), exact: the call captured
+    into a CUDA graph kept whole (``keep_graph=True``) and its nodes counted
+    by type through the driver API (cuGraphGetNodes, cuGraphNodeGetType).
+    A graph holds every launch of the call, where torch.profiler now and
+    then drops a record (crc16's 14 kernels a call read as 13.6 once, 13.8
+    once).  A call that cannot be captured, or a failed query, raises."""
+    import collections
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    g = captured(fn, 1, keep_graph=True)
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(graph, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    if rc == 0:
+        rc = cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count))
+    check(rc == 0, f"cuGraphGetNodes failed ({rc})")
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rc = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        check(rc == 0, f"cuGraphNodeGetType failed ({rc})")
+        kinds[NODE_KINDS.get(kind.value, str(kind.value))] += 1
+    del g
+    return dict(kinds)
 
 
 def phase_device():
@@ -902,19 +1018,53 @@ def route_plain(route):
     """The plain PyTorch version of a K4 route's own arithmetic."""
     from c_ofdm_tpu_torch.ops import dft
     return {"radix": dft.dft_radix_ref, "mixed": dft.dft_mixed_ref,
+            "cluster": dft.dft_cluster_ref,
             "bluestein": dft.dft_bluestein_ref}.get(route)
 
 
+def cluster_split_fft(x, sign, c):
+    """The cluster kernel at a split n = c·L other than the one
+    ``dft._cluster_split`` picks, through its C entry point and counted
+    nowhere: phase 18's comparison of splits, which the port never runs."""
+    from c_ofdm_tpu_torch.ops import dft
+    n = x.shape[-1]
+    L = n // c
+    x2 = dft._rows(x)
+    out = torch.empty(x2.shape, dtype=torch.complex64, device=x.device)
+    dft._prepare("cluster", x.device.index, c, L)
+    rc = dft._lib().c_ofdm_cluster_fft(
+        x2.data_ptr(), x2.stride(0),
+        dft.mixed_twiddles(L, sign, x.device).data_ptr(),
+        dft.cluster_twiddles(n, c, sign, x.device).data_ptr(),
+        out.data_ptr(), x2.shape[0], c, L, *dft._plan_word(L), sign, 1.0,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the cluster kernel at c = {c}, n = {n} failed: "
+          f"{dft._lib().c_ofdm_dft_error_string(rc).decode()}")
+    return out
+
+
+def symbol_view(c, rows, dev, g):
+    """A step's CP-stripped RX symbols at geometry ``c`` (the RX input of
+    K4): the strided view [rows, 3, n] of rows x 3 symbols of n + cp
+    samples."""
+    nsym = c.num_pr_symb + c.num_symb
+    sig = torch.randn(rows, nsym * c.ofdm_len, dtype=torch.complex64,
+                      device=dev, generator=g)
+    return sig.reshape(rows, nsym, c.ofdm_len)[..., c.cp_size:]
+
+
 def run_dft_checks(dev):
-    """Phase 14: K4 against dft_ref and the float64 DFT of the same
-    complex64 input, and on the radix, mixed and Bluestein routes against
-    the route's own plain version (the kernel's passes in plain PyTorch,
-    within RADIX_REF_TOL·max|Y|: the two differ only in the rounding of
-    each butterfly); each case on the route ``dft._route`` names, one
-    launch on that route's counter, and no twiddle planes built for it on
-    the FFT routes.  Returns {route: worst |kernel - plain|}: "dft" the
-    radix and dense routes' against dft_ref, "mixed" and "bluestein"
-    against the route's own plain version."""
+    """Phase 14: K4 against dft_ref (the cluster route: dft_cluster_ref,
+    since dft_ref's planes at 16K-32K are 2-9 GB) and the float64 DFT of
+    the same complex64 input, and on the radix, mixed, cluster and
+    Bluestein routes against the route's own plain version (the kernel's
+    passes in plain PyTorch, within RADIX_REF_TOL·max|Y|: the two differ
+    only in the rounding of each butterfly); each case on the route
+    ``dft._route`` names, one launch on that route's counter, and no
+    twiddle planes built for it on the FFT routes.  Returns {route: worst
+    |kernel - plain|}: "dft" the radix and dense routes' against dft_ref,
+    "mixed", "cluster" and "bluestein" against the route's own plain
+    version."""
     from c_ofdm_tpu_torch import ModemConfig
     from c_ofdm_tpu_torch.ops import dft
     cfg = ModemConfig()
@@ -930,6 +1080,7 @@ def run_dft_checks(dev):
     rx = randc(B, nsym * cfg.ofdm_len).reshape(B, nsym, cfg.ofdm_len)
     rx_lte = randc(B, nsym * lte.ofdm_len).reshape(B, nsym, lte.ofdm_len)
     rx_odd = randc(B, nsym * odd.ofdm_len).reshape(B, nsym, odd.ofdm_len)
+    t16, t32 = ModemConfig(**DVBT2_16K), ModemConfig(**DVBT2_32K)
     cases = [
         ("RX view", rx[..., cfg.cp_size:], -1, 1.0),
         ("TX", randc(B, cfg.num_symb, cfg.fft_size), +1, 1.0),
@@ -950,8 +1101,14 @@ def run_dft_checks(dev):
         ("RX view 510", rx_odd[..., odd.cp_size:], -1, 1.0),
         ("TX 510", randc(B, odd.num_symb, odd.fft_size), +1, 1.0),
         ("n=8191", randc(5, 8191), -1, 1.0),
+        ("TX 16k", randc(B_16K, t16.num_symb, t16.fft_size), +1, 1.0),
+        ("RX view 16k", symbol_view(t16, B_16K, dev, g), -1, 1.0),
+        ("TX 32k", randc(B_32K, t32.num_symb, t32.fft_size), +1, 1.0),
+        ("RX view 32k", symbol_view(t32, B_32K, dev, g), -1, 1.0),
+        ("n=12288 scaled", randc(21, 12288), +1, 12288 ** -0.5),
+        ("n=65536", randc(9, 65536), -1, 1.0),
     ]
-    worst = {"dft": 0.0, "mixed": 0.0, "bluestein": 0.0}
+    worst = {"dft": 0.0, "mixed": 0.0, "cluster": 0.0, "bluestein": 0.0}
     for label, x, sign, scale in cases:
         route = dft._route(x.shape[-1])
         want_counts = tuple(int(r == route) for r in dft.ROUTES)
@@ -960,7 +1117,8 @@ def run_dft_checks(dev):
         got = dft.dft(x, sign, scale)
         counts = tuple(a - b for a, b in zip(route_counts(), before))
         built = dft.dft_planes.cache_info().misses - planes
-        plain = dft.dft_ref(x, sign, scale)
+        plain_fn = dft.dft_cluster_ref if route == "cluster" else dft.dft_ref
+        plain = plain_fn(x, sign, scale)
         x64 = x.to(torch.complex128)
         want = (torch.fft.fft(x64) if sign < 0
                 else torch.fft.ifft(x64) * x.shape[-1]) * scale
@@ -994,8 +1152,8 @@ def run_dft_checks(dev):
                 worst[route] = max(worst[route], d)
         say("dft", f"K4 {label} {tuple(x.shape)} sign {sign:+d} scale "
             f"{scale:.4g}, {route} route: max abs err vs float64 {err:.3e} "
-            f"({err / ymax:.2e} of max|Y|), plain {err_p:.3e}; "
-            f"|K4 - plain| {diff:.3e}{vs_own}")
+            f"({err / ymax:.2e} of max|Y|), plain ({plain_fn.__name__}) "
+            f"{err_p:.3e}; |K4 - plain| {diff:.3e}{vs_own}")
     return worst
 
 
@@ -1118,9 +1276,10 @@ def run_wideband(dev, profile=None):
 
 
 def dft_timing(dev):
-    """Phase 18: K4 at the pallas step's two shapes (device time,
-    torch.profiler) against its bound, dft_radix_ref (the radix kernel's
-    passes in plain PyTorch), its plain version dft_ref, the library call
+    """Phase 18: K4 at the pallas step's two shapes (device time per call:
+    ``graph_ms``, the same for every column) against its bound,
+    dft_radix_ref (the radix kernel's passes in plain PyTorch), its plain
+    version dft_ref, the library call
     (torch.fft.fft for sign -1; torch.fft.ifft with norm="forward", the
     unnormalized backward transform, for sign +1) and complex torch.matmul
     with the cached W, under two L2 conditions: warm (one input, reused by
@@ -1197,7 +1356,7 @@ def dft_timing(dev):
             devt = {k: [] for k in fns}
             for order in (tuple(fns), tuple(reversed(fns))):
                 for k in order:
-                    devt[k].append(device_ms(fns[k], 24)[0])
+                    devt[k].append(graph_ms(fns[k], 24))
             med = {k: statistics.median(v) for k, v in devt.items()}
             for k in keys:
                 out[cond][k] += med[k] if in_step else 0.0
@@ -1213,9 +1372,9 @@ def dft_timing(dev):
                 f"(dft_ref) {med['plain'] * 1e3:.3f} us; library (torch.fft) "
                 f"{med['library'] * 1e3:.3f} us (K4 / library "
                 f"{med['kernel'] / med['library']:.2f}); complex torch.matmul "
-                f"with W {med['matmul'] * 1e3:.3f} us (device, median of 2 "
-                f"profiled runs of 24; dense product's floor "
-                f"{dense * 1e3:.3f} us)")
+                f"with W {med['matmul'] * 1e3:.3f} us (device: 24 calls in "
+                f"one CUDA graph, CUDA events, median of 2 orders; dense "
+                f"product's floor {dense * 1e3:.3f} us)")
     out["bound_by"] = max(limits, key=limits.get)
     for cond in ("warm", "cold"):
         t = out[cond]
@@ -1234,47 +1393,52 @@ def dft_timing(dev):
 
 
 def route_timing(dev, g):
-    """Phase 18, second part: K4's mixed and Bluestein routes against the
-    dense route (``on_route`` "dense": the GEMM on the n x n planes that
-    took every such n before), the route's plain version and torch.fft, in
-    turns, with the L2 warm and cold as above, at [2304, 500] (the stock RX
-    row count at ModemConfig's fft_size = 500), the 1536 flagship step's TX
-    [2048, 1536] (sign +1) and RX view [2304, 1536] (row stride 1644),
-    [2304, 509] (a prime: Bluestein, m = 1024) and the 510 step's TX
-    [2048, 510] (sign +1) and RX view [2304, 510] (row stride 638,
-    Bluestein, m = 1024).  The sums are over the shapes the path's steps
-    give the route: the 1536 step's for mixed, the 510 step's for
-    Bluestein.  The bound is a DFT's, as above, whatever the algorithm.
-    Returns
-    {route: {"kernel", "plain", "library", "bound" (ms, cold, summed over
-    the route's step shapes), "bound_by", "shapes": {label: medians}}}."""
+    """Phase 18, second part: K4's mixed, cluster and Bluestein routes
+    against the dense route (``on_route`` "dense": the GEMM on the n x n
+    planes that took every such n before), the route's plain version and
+    torch.fft, in turns, with the L2 warm and cold as above, at [2304, 500]
+    (the stock RX row count at ModemConfig's fft_size = 500), the 1536
+    flagship step's TX [2048, 1536] (sign +1) and RX view [2304, 1536] (row
+    stride 1644), [2304, 509] (a prime: Bluestein, m = 1024), the 510
+    step's TX [2048, 510] (sign +1) and RX view [2304, 510] (row stride 638,
+    Bluestein, m = 1024), and the DVB-T2 steps' TX [128, 16384] / [64,
+    32768] (sign +1) and RX views [192, 16384] / [96, 32768] (row strides
+    18432 / 36864; the cluster route).  The dense route is not run at 32K
+    (its planes would take 2 x 8.6 GB), and its 16K planes (4.3 GB) are
+    dropped right after; the cluster route's other splits
+    (``cluster_split_fft``) run beside it, cold only.  The sums are over
+    the shapes the path's steps give the route: the 1536 step's for mixed,
+    the 510 step's for Bluestein, both DVB-T2 steps' for cluster (also per
+    step).  The bound is a DFT's, as above, whatever the algorithm.  Returns {route: {"kernel", "plain", "library",
+    "bound" (ms, cold, summed over the route's step shapes), "bound_by",
+    "steps": {step: those sums}, "shapes": {label: medians}}}."""
     from c_ofdm_tpu_torch import ModemConfig
     from c_ofdm_tpu_torch.ops import dft
     lte = ModemConfig(**LTE1536)
     odd = ModemConfig(**NONSMOOTH)
+    t16, t32 = ModemConfig(**DVBT2_16K), ModemConfig(**DVBT2_32K)
 
-    def rx_view(c):
-        nsym = c.num_pr_symb + c.num_symb
-        sig = torch.randn(B, nsym * c.ofdm_len, dtype=torch.complex64,
-                          device=dev, generator=g)
-        return sig.reshape(B, nsym, c.ofdm_len)[..., c.cp_size:]
+    def rand(*shape):
+        return lambda: torch.randn(*shape, dtype=torch.complex64, device=dev,
+                                   generator=g)
 
-    shapes = (("n=500", lambda: torch.randn(
-                   B * 9, 500, dtype=torch.complex64, device=dev,
-                   generator=g), -1, False),
-              ("TX 1536", lambda: torch.randn(
-                   B, lte.num_symb, 1536, dtype=torch.complex64, device=dev,
-                   generator=g), +1, True),
-              ("RX view 1536", lambda: rx_view(lte), -1, True),
-              ("n=509 (prime)", lambda: torch.randn(
-                   B * 9, 509, dtype=torch.complex64, device=dev,
-                   generator=g), -1, False),
-              ("TX 510", lambda: torch.randn(
-                   B, odd.num_symb, 510, dtype=torch.complex64, device=dev,
-                   generator=g), +1, True),
-              ("RX view 510", lambda: rx_view(odd), -1, True))
+    # (label, input maker, sign, the step whose sums it joins or None)
+    shapes = (("n=500", rand(B * 9, 500), -1, None),
+              ("TX 1536", rand(B, lte.num_symb, 1536), +1, "1536"),
+              ("RX view 1536", lambda: symbol_view(lte, B, dev, g), -1,
+               "1536"),
+              ("n=509 (prime)", rand(B * 9, 509), -1, None),
+              ("TX 510", rand(B, odd.num_symb, 510), +1, "510"),
+              ("RX view 510", lambda: symbol_view(odd, B, dev, g), -1,
+               "510"),
+              ("TX 16k", rand(B_16K, t16.num_symb, t16.fft_size), +1, "16k"),
+              ("RX view 16k", lambda: symbol_view(t16, B_16K, dev, g), -1,
+               "16k"),
+              ("TX 32k", rand(B_32K, t32.num_symb, t32.fft_size), +1, "32k"),
+              ("RX view 32k", lambda: symbol_view(t32, B_32K, dev, g), -1,
+               "32k"))
     out = {}
-    for label, make, sign, in_sum in shapes:
+    for label, make, sign, step in shapes:
         xs = [make() for _ in range(COLD_SETS)]
         n = xs[0].shape[-1]
         m = xs[0].numel() // n
@@ -1288,43 +1452,73 @@ def route_timing(dev, g):
         rec = out.setdefault(route, {"kernel": 0.0, "plain": 0.0,
                                      "library": 0.0, "bound": 0.0,
                                      "limits": dict.fromkeys(by, 0.0),
-                                     "shapes": {}})
+                                     "steps": {}, "shapes": {}})
         plain = route_plain(route)
+        splits = [c for c in dft.CLUSTER_SPLITS if route == "cluster"
+                  and c != dft._cluster_split(n)[0] and n % c == 0
+                  and dft._fits("mixed", n // c)]
         for cond, sets in (("warm", 1), ("cold", COLD_SETS)):
             lib = ((lambda i: torch.fft.fft(xs[i % sets])) if sign < 0
                    else (lambda i: torch.fft.ifft(xs[i % sets],
                                                   norm="forward")))
             fns = {"kernel": lambda i: dft.dft(xs[i % sets], sign),
-                   "dense": lambda i: on_route("dense", xs[i % sets], sign),
                    "plain": lambda i: plain(xs[i % sets], sign),
                    "library": lib}
+            if n <= 16384:
+                fns["dense"] = lambda i: on_route("dense", xs[i % sets], sign)
+            for c in splits if cond == "cold" else ():
+                fns[f"split c={c}"] = (lambda c: lambda i: cluster_split_fft(
+                    xs[i % sets], sign, c))(c)
             for fn in fns.values():
                 cuda_ms(fn, 2 * sets)
             devt = {k: [] for k in fns}
             for order in (tuple(fns), tuple(reversed(fns))):
                 for k in order:
-                    slow = k in ("dense", "plain")
-                    devt[k].append(device_ms(fns[k], 6 if slow else 24)[0])
+                    devt[k].append(graph_ms(fns[k], 6 if k in ("plain",
+                                                                "dense")
+                                            else 24))
             med = {k: statistics.median(v) for k, v in devt.items()}
             rec["shapes"][f"{label} {cond}"] = med
-            if cond == "cold" and in_sum:
+            if cond == "cold" and step:
+                per = rec["steps"].setdefault(step, {
+                    "kernel": 0.0, "plain": 0.0, "library": 0.0,
+                    "bound": 0.0, "dense": 0.0 if "dense" in med else None})
                 for k in ("kernel", "plain", "library"):
                     rec[k] += med[k]
+                    per[k] += med[k]
+                if per["dense"] is not None:
+                    per["dense"] += med["dense"]
                 rec["bound"] += bound
+                per["bound"] += bound
                 for k in by:
                     rec["limits"][k] += by[k]
-            target = 10 if route == "mixed" else 5
+            target = {"mixed": 10, "cluster": 100}.get(route, 5)
+            ratio = med.get("dense", 0.0) / med["kernel"]
+            dense = ("" if "dense" not in med else
+                     f"dense route {med['dense'] * 1e3:.3f} us (dense / "
+                     f"kernel {ratio:.1f}x, target >= {target}x: "
+                     f"{'met' if ratio >= target else 'MISSED'}); ")
+            other = "".join(f"{k} {med[k] * 1e3:.3f} us; " for k in med
+                            if k.startswith("split"))
             say("dft-timing", f"K4 {route} route {label} [{m},{n}] sign "
                 f"{sign:+d}, {cond} L2: kernel {med['kernel'] * 1e3:.3f} us, "
                 f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
-                f"us ({nbytes / 1e6:.1f} MB at 3.35 TB/s); dense route "
-                f"{med['dense'] * 1e3:.3f} us (dense / kernel "
-                f"{med['dense'] / med['kernel']:.1f}x, target >= {target}x: "
-                f"{'met' if med['dense'] >= target * med['kernel'] else 'MISSED'}"
-                f"); {plain.__name__} {med['plain'] * 1e3:.3f} us; library "
+                f"us ({nbytes / 1e6:.1f} MB at 3.35 TB/s); {dense}{other}"
+                f"{plain.__name__} {med['plain'] * 1e3:.3f} us; library "
                 f"(torch.fft) {med['library'] * 1e3:.3f} us (K4 / library "
-                f"{med['kernel'] / med['library']:.2f}) (device, median of 2 "
-                f"profiled runs of 24 calls, 6 for dense and plain)")
+                f"{med['kernel'] / med['library']:.2f}) (device: 24 calls in "
+                f"one CUDA graph, 6 for dense and plain, CUDA events, median "
+                f"of 2 orders)")
+        if label == "RX view 16k":
+            # the 16K planes (2 x 2.15 GB) go now; their host matrices stay
+            # cached for phase 25's dense before column, which drops them
+            dft.dft_planes.cache_clear()
+    fit = {(c, n // c): dft._prepare("cluster", dev.index, c, n // c)
+           for n in (t16.fft_size, t32.fft_size) for c in dft.CLUSTER_SPLITS
+           if n % c == 0 and dft._fits("mixed", n // c)}
+    say("dft-timing", f"K4 cluster route: clusters of (c blocks, L points "
+        f"a block) that fit on the card at once "
+        f"(cudaOccupancyMaxActiveClusters): {fit}")
     for route, rec in out.items():
         rec["bound_by"] = max(rec["limits"], key=rec["limits"].get)
         say("dft-timing", f"K4 {route} route, summed over its step shapes, "
@@ -1332,6 +1526,21 @@ def route_timing(dev, g):
             f"({rec['bound'] / rec['kernel']:.1%} of the bound "
             f"{rec['bound']:.5f} ms, {rec['bound_by']}), plain "
             f"{rec['plain']:.5f} ms, library {rec['library']:.5f} ms")
+        for step, per in rec["steps"].items():
+            share = per["bound"] / per["kernel"]
+            ratio = per["kernel"] / per["library"]
+            dense = ("" if per["dense"] is None else
+                     f", dense route {per['dense']:.5f} ms "
+                     f"({per['dense'] / per['kernel']:.1f}x the kernel)")
+            goals = ("" if route != "cluster" else
+                     f" (targets: >= 35% of the bound "
+                     f"{'met' if share >= 0.35 else 'MISSED'}, <= 2x "
+                     f"torch.fft {'met' if ratio <= 2 else 'MISSED'})")
+            say("dft-timing", f"K4 {route} route, the {step} step (TX + RX), "
+                f"cold L2: kernel {per['kernel']:.5f} ms ({share:.1%} of the "
+                f"bound {per['bound']:.5f} ms), torch.fft "
+                f"{per['library']:.5f} ms (K4 / library {ratio:.3f}), plain "
+                f"{per['plain']:.5f} ms{dense}{goals}")
     return out
 
 
@@ -1494,13 +1703,12 @@ def gather_timing(dev):
             del xs
 
 
-def crc16_scan(data):
+def crc16_scan(data, table):
     """The byte-serial CRC16-CCITT table walk of the JAX package's
     ``lax.scan`` (c_ofdm_tpu/mac/mac.py:44-57), one step per byte, eagerly
-    on the data's device: the form ``Mac``'s crc16 does not take.  Phase 20
-    times it beside the matrix form; the port never calls it."""
-    from c_ofdm_tpu_torch.mac import mac as macm
-    table = torch.from_numpy(macm._CRC_TABLE.astype(np.int64)).to(data.device)
+    on the data's device (``table``: the 256 entries, int64, there): the
+    form ``Mac``'s crc16 does not take.  Phase 20 times it beside the
+    matrix form; the port never calls it."""
     x = data.to(torch.int64)
     crc = torch.full(data.shape[:-1], 0xFFFF, dtype=torch.int64,
                      device=data.device)
@@ -1509,27 +1717,22 @@ def crc16_scan(data):
     return crc
 
 
-def profile_call(fn, reps, tries=5):
-    """(device ms per call, CUDA kernels per call) of fn over reps calls,
-    torch.profiler; and the wall ms per call by CUDA events.  The profiler
-    now and then drops a launch's record, and never adds one (seen in phase
-    20: crc16's 14 kernels a call recorded as 13.6), so the count is taken
-    once two sessions in a row record the same one, up to ``tries``
-    sessions."""
-    from torch.autograd import DeviceType
+def profile_call(fn, reps, count=None):
+    """(device ms per call of fn over reps calls, torch.profiler; the device
+    operations of one call of ``count`` (fn if None) by kind, exact:
+    ``graph_kernels``; the wall ms per call by CUDA events)."""
     fn(0)
     torch.cuda.synchronize()
     wall = statistics.median(cuda_ms(fn, reps) for _ in range(3))
-    last = None
-    for _ in range(tries):
-        ms, events = device_ms(fn, reps)
-        kernels = sum(e.count for e in events
-                      if e.device_type == DeviceType.CUDA) / reps
-        if kernels == last:
-            return ms, kernels, wall
-        last = kernels
-    raise RuntimeError(f"chip_smoke: torch.profiler recorded no kernel count "
-                       f"twice in {tries} sessions (last {kernels} a call)")
+    ms, _ = device_ms(fn, reps)
+    return ms, graph_kernels(count or fn), wall
+
+
+def ops_text(kinds):
+    """A ``graph_kernels`` count as text: the kernels, then any other kind
+    of device operation."""
+    other = "".join(f", {v} {k}" for k, v in kinds.items() if k != "kernel")
+    return f"{kinds.get('kernel', 0)} CUDA kernels{other}"
 
 
 def noisy_reads(mac, wire, rng):
@@ -1631,7 +1834,8 @@ def run_mac(dev):
 
     # launches and device time per call at the stock config
     body = torch.cat([wire[:, :6], payload], dim=-1)
-    check(torch.equal(crc16_scan(body), macm.crc16(body)),
+    table = torch.from_numpy(macm._CRC_TABLE.astype(np.int64)).to(dev)
+    check(torch.equal(crc16_scan(body, table), macm.crc16(body)),
           "mac: the table walk and the matrix form disagree")
     short = body[:, :64].contiguous()
     counts = {}
@@ -1642,13 +1846,14 @@ def run_mac(dev):
              lambda i: macm.crc16(body), 20),
             (f"crc16 [{B},64] (matrix form)", lambda i: macm.crc16(short), 20),
             (f"crc16 [{B},{body.shape[1]}] table walk (rejected: one step "
-             f"per byte)", lambda i: crc16_scan(body), 3)):
-        ms, kernels, wall = profile_call(fn, reps)
-        counts[label] = kernels
-        say("mac", f"{label} at B={B}, stock config: {kernels:.0f} CUDA "
-            f"kernels per call, device {ms * 1e3:.2f} us per call "
-            f"(torch.profiler over {reps} calls), wall {wall * 1e3:.1f} us "
-            f"per call with host dispatch (CUDA events)")
+             f"per byte)", lambda i: crc16_scan(body, table), 3)):
+        ms, kinds, wall = profile_call(fn, reps)
+        counts[label] = kinds
+        say("mac", f"{label} at B={B}, stock config: {ops_text(kinds)} per "
+            f"call (the call captured as a CUDA graph), device "
+            f"{ms * 1e3:.2f} us per call (torch.profiler over {reps} "
+            f"calls), wall {wall * 1e3:.1f} us per call with host dispatch "
+            f"(CUDA events)")
     check(counts[f"crc16 [{B},64] (matrix form)"]
           == counts[f"crc16 [{B},{body.shape[1]}] (matrix form)"],
           f"mac: crc16's kernel count grows with the byte count {counts}")
@@ -1779,12 +1984,16 @@ def run_link_batch(dev):
 
     for i, p in enumerate(params):
         x = frames[i * per:(i + 1) * per]
-        ms, kernels, wall = profile_call(
-            lambda j, p=p, x=x: apply_channel(p, x, generator=g), 10)
+        # counted on the default generator: a CUDA graph takes draws from
+        # that one alone, and the kernels are the same
+        ms, kinds, wall = profile_call(
+            lambda j, p=p, x=x: apply_channel(p, x, generator=g), 10,
+            count=lambda j, p=p, x=x: apply_channel(p, x))
         say("link-batch", f"apply_channel set {i + 1} at [{per}, "
-            f"{cfg.frame_len}] -> [{per}, {n}]: device {ms * 1e3:.2f} us in "
-            f"{kernels:.0f} CUDA kernels per call (torch.profiler over 10), "
-            f"wall {wall * 1e3:.1f} us per call (CUDA events)")
+            f"{cfg.frame_len}] -> [{per}, {n}]: device {ms * 1e3:.2f} us "
+            f"(torch.profiler over 10) in {ops_text(kinds)} per call (the "
+            f"call captured as a CUDA graph), wall {wall * 1e3:.1f} us per "
+            f"call (CUDA events)")
 
 
 def stream_mac_frames(mac, outs, C):
@@ -2479,6 +2688,7 @@ def launches_of(fn):
 # K4's launch counter of each route and the kernel it launches
 K4_KERNELS = {"radix_launches": "fft_kernel",
               "mixed_launches": "mixed_fft_kernel",
+              "cluster_launches": "cluster_fft_kernel",
               "bluestein_launches": "bluestein_kernel",
               "dense_launches": "dft_kernel"}
 
@@ -2508,6 +2718,17 @@ def profiled_names(events, names, reps):
                    if e.device_type == DeviceType.CUDA
                    and re.search(rf"(?<![A-Za-z_]){n}", e.key)) / reps
             for n in names}
+
+
+def top_kernels(events, reps, k=5):
+    """The ``k`` device kernels with the most self time in ``events``
+    (torch.profiler key averages over ``reps`` calls): name (cut to 48
+    characters) and µs per call."""
+    from torch.autograd import DeviceType
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)[:k]
+    return "; ".join(f"{e.key[:48]} {e.self_device_time_total / reps:.1f} us"
+                     for e in rows)
 
 
 def max_diff(a, b):
@@ -2594,10 +2815,11 @@ def route_before(dev, tag, cfg, payloads, route):
     ``route``: bytes exact, K4 on that route only, then the graph's wall
     (CUDA events, median of 8) and device time (torch.profiler, 4 calls).
     The launch counts are put back afterwards: these launches are a
-    comparison, not the path."""
+    comparison, not the path.  The dense route's planes (and the host
+    matrices they came from: 2 x 4.3 GB at 16K) are dropped at the end."""
     from c_ofdm_tpu_torch import make_frame_spec
     from c_ofdm_tpu_torch.models.modem import FlagshipStep
-    from c_ofdm_tpu_torch.ops import dft
+    from c_ofdm_tpu_torch.ops import dft, fft
     from c_ofdm_tpu_torch.utils import graphs
     counts = graphs.launch_counts()
     step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
@@ -2612,18 +2834,66 @@ def route_before(dev, tag, cfg, payloads, route):
                              for _ in range(8))
     devt, _ = device_ms(lambda i: step(payloads[i % 2]), 4)
     graphs._set_counts(counts)
+    del step
+    if route == "dense":
+        dft.dft_planes.cache_clear()
+        fft._dft_matrix_np.cache_clear()
     say("compiled", f"{tag}: the same step captured on the {route} route "
         f"(the before column): bytes exact, K4 2 {route} launches per "
         f"replay; graph {wall:.4f} ms per call, device {devt:.4f} ms")
     return {"route": route, "wall": wall, "device": devt}
 
 
+def impaired_receive(tag, cfg, step, payload, rng, cfo, routes):
+    """The step's receive on impaired captures of its frames (offsets in
+    [0, 4096], CFO ``cfo``, amplitude 10, 30 dB, and ZERO_ROWS all-zero
+    rows), as a graph replay: every frame at its planted offset with exact
+    bytes, none in a zero row, K1 once and K4 once on the route of
+    ``routes``, the first 2 rows equal to the port's CPU run
+    (check_impaired); and equal to the same receive run eagerly."""
+    from c_ofdm_tpu_torch import make_frame_spec
+    from c_ofdm_tpu_torch.models import tx
+    from c_ofdm_tpu_torch.models.modem import FlagshipStep
+    from c_ofdm_tpu_torch.ops import dft, extract
+    spec = step.bound_spec()
+    frames = tx.transmit(spec, payload).cpu().numpy()
+    caps_np, offs = impaired_captures(frames.astype(np.complex128), rng,
+                                      extra=EXTRA_WIDE, amp=10.0, cfo=cfo)
+    cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
+                                            device="cpu",
+                                            fft_backend=spec.fft_backend))
+    before = route_counts()
+    n_cpu, err = check_impaired(f"compiled {tag}", step, cpu_step, caps_np,
+                                offs, payload.cpu().numpy(),
+                                {dft.dft: 1, extract.extract_windows: 1},
+                                cpu_rows=2)
+    got = {r: a - b for r, a, b in zip(dft.ROUTES, route_counts(), before)}
+    check(got == {r: int(r in routes) for r in dft.ROUTES},
+          f"compiled {tag}: impaired receive K4 per route {got}")
+    caps = torch.from_numpy(caps_np).to(spec.device)
+    res_g, s_g = step.receive(caps)
+    with eager_calls():
+        res_e, s_e = step.receive(caps)
+    for name in ("frame_start", "t2_begin", "pr_begin", "found"):
+        check(torch.equal(getattr(s_g, name), getattr(s_e, name)),
+              f"compiled {tag}: impaired {name} graph != eager")
+    check(torch.equal(res_g.mac_bytes, res_e.mac_bytes),
+          f"compiled {tag}: impaired bytes graph != eager")
+    say("compiled", f"{tag}: impaired B={payload.shape[0]}+{ZERO_ROWS} "
+        f"captures of {caps_np.shape[1]} samples, offsets "
+        f"{int(offs.min())}..{int(offs.max())}, CFO {cfo:g}, 30 dB: every "
+        f"frame once at its planted offset, payloads exact, zero rows not "
+        f"found, K4 {got}; graph = eager; {n_cpu} rows equal to the CPU run "
+        f"(constellation max abs diff {err:.3g})")
+
+
 def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False,
-                  routes=None, before=None):
+                  routes=None, before=None, impaired=None):
     """One flagship step: FlagshipStep's graph against the same step run
     eagerly on the same payloads; with ``routes``, K4's launches per replay
     on each route checked; with ``before``, the step once more with K4 on
-    that route (route_before)."""
+    that route (route_before); with ``impaired`` (a CFO), the receive on
+    impaired captures (impaired_receive)."""
     from c_ofdm_tpu_torch import make_frame_spec
     from c_ofdm_tpu_torch.models import rx, tx
     from c_ofdm_tpu_torch.models.modem import FlagshipStep
@@ -2671,6 +2941,10 @@ def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False,
         check_routes(tag, count_names(replay), routes)
     say("compiled", f"{tag}: launches per replay = per eager call "
         f"{count_names(replay)}; profiler per replay {seen}")
+    say("compiled", f"{tag}: top device kernels per replay: "
+        f"{top_kernels(events, 4)}")
+    if impaired:
+        impaired_receive(tag, cfg, step, payloads[0], rng, impaired, routes)
     cell = {"tag": tag, "times": times, "launches": count_names(replay),
             "worst": worst, "capture_s": recs[0].capture_s,
             "pool_mib": recs[0].pool_bytes / 2**20}
@@ -2910,19 +3184,25 @@ def run_compiled(dev, card, stream_data, sharded_cells):
             c["phase_s"] = time.perf_counter() - t
             cells.append(c)
 
-    for tag, cfg, backend, batch, routes, before in (
-            ("flagship matmul", ModemConfig(), "matmul", B, None, None),
-            ("flagship pallas", ModemConfig(), "pallas", B, {"radix": 2},
+    for tag, cfg, backend, batch, routes, before, impaired in (
+            ("flagship matmul", ModemConfig(), "matmul", B, None, None,
              None),
+            ("flagship pallas", ModemConfig(), "pallas", B, {"radix": 2},
+             None, None),
             ("flagship pallas 1536", ModemConfig(**LTE1536), "pallas", B,
-             {"mixed": 2}, "dense"),
+             {"mixed": 2}, "dense", None),
             ("flagship pallas 510", ModemConfig(**NONSMOOTH), "pallas", B,
-             {"bluestein": 2}, None),
+             {"bluestein": 2}, None, None),
+            ("flagship pallas 16k", ModemConfig(**DVBT2_16K), "pallas", B_16K,
+             {"cluster": 2}, "dense", 1e-5),
+            ("flagship pallas 32k", ModemConfig(**DVBT2_32K), "pallas", B_32K,
+             {"cluster": 2}, None, 2e-6),
             ("wideband ct", ModemConfig(**WIDEBAND), "ct", B_WIDE, None,
-             None)):
+             None, None)):
         timed(lambda: flagship_cell(dev, tag, cfg, backend, batch, rng,
                                     jit_check=backend == "matmul",
-                                    routes=routes, before=before))
+                                    routes=routes, before=before,
+                                    impaired=impaired))
     cfg = ModemConfig()
     for backend, chans in (("matmul", CHANNELS), ("pallas", (STATE_C,))):
         spec = make_frame_spec(cfg, torch.complex64, device=dev,
@@ -2940,7 +3220,8 @@ def run_compiled(dev, card, stream_data, sharded_cells):
     counts = {f.__name__: f.launches for f in fns}
     routes = dict(zip(dft.ROUTES, route_counts()))
     check(all(counts.values()) and all(routes[r] for r in
-                                       ("radix", "mixed", "bluestein")),
+                                       ("radix", "mixed", "cluster",
+                                        "bluestein")),
           f"compiled: a kernel never replayed: {counts}, K4 {routes}")
     say("compiled", f"replay launches in this phase {counts} (K4 per route "
         f"{routes})")
@@ -3141,7 +3422,7 @@ def main():
         "bound_ms": k4["routes"][route]["bound"],
         "bound_by": k4["routes"][route]["bound_by"],
         "library_ms": k4["routes"][route]["library"],
-    } for route in ("mixed", "bluestein")]}), flush=True)
+    } for route in ("mixed", "cluster", "bluestein")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

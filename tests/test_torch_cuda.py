@@ -1,6 +1,7 @@
-"""The port on the card: K1, K2, K3 and K4 (each of its four routes)
+"""The port on the card: K1, K2, K3 and K4 (each of its five routes)
 against their plain versions, the flagship step (matmul and pallas
-backends, and pallas at a 1536-point geometry), one gated streaming buffer,
+backends, and pallas at a 1536-point geometry and at DVB-T2's 16K and 32K
+FFT sizes), one gated streaming buffer,
 the MAC codec and channel simulator against their CPU runs, and the
 captured calls (CUDA-graph replays) against their eager runs, the sharded
 receiver and the channel-sharded stream among them.
@@ -434,7 +435,8 @@ def test_dft_launch_runs_a_named_route(dev):
     """Under dft._forced_route, dft runs the route named where that route
     takes n, and counts it: the dense route at n = 500, 509 and 1536, the
     mixed kernel at a power of two, all equal to the route dft picks within
-    1e-6·max|Y|; a route that does not take n raises ValueError."""
+    1e-6·max|Y|; a route that does not take n raises ValueError (the
+    cluster route below 8193, above 65536 and at an odd n among them)."""
     g = torch.Generator(device=dev).manual_seed(12)
     for n, routes in ((500, ("dense",)), (509, ("dense",)),
                       (1536, ("dense",)), (512, ("mixed", "dense"))):
@@ -451,12 +453,120 @@ def test_dft_launch_runs_a_named_route(dev):
             tol = 1e-5 if route == "dense" else 1e-6
             assert (float((got - ref).abs().max())
                     <= tol * float(ref.abs().max())), (n, route)
-    for n, routes in ((509, ("radix", "mixed")), (512, ("bluestein",))):
+    for n, routes in ((509, ("radix", "mixed", "cluster")),
+                      (512, ("bluestein", "cluster")), (8192, ("cluster",)),
+                      (19683, ("cluster", "mixed")),
+                      (65537, ("cluster", "bluestein"))):
         x = torch.zeros((4, n), dtype=torch.complex64, device=dev)
         for route in routes:
             with dft._forced_route(route), pytest.raises(
                     ValueError, match="does not take"):
                 dft.dft(x, -1, 1.0)
+
+
+_CLUSTER_CASES = {
+    # name: (rows, or "view" for the step's CP-stripped RX symbols, n, sign,
+    # scale)
+    "n12288": (37, 12288, -1, 1.0),
+    "n12288_scaled": (21, 12288, +1, 12288 ** -0.5),
+    "tx_16k": (128, 16384, +1, 1.0),
+    "rx_view_16k": ("view", 16384, -1, 1.0),
+    "tx_32k": (64, 32768, +1, 1.0),
+    "rx_view_32k": ("view", 32768, -1, 1.0),
+    "n65536": (9, 65536, -1, 1.0),
+    "n65536_scaled": (5, 65536, +1, 1.0 / 256),
+}
+
+
+def _cluster_input(case, g, dev):
+    rows, n, sign, scale = _CLUSTER_CASES[case]
+    if rows == "view":   # rows of stride n + n/8, read in place
+        cp, b = n // 8, {16384: 64, 32768: 32}[n]
+        x = torch.randn(b, 3 * (n + cp), dtype=torch.complex64, device=dev,
+                        generator=g).reshape(b, 3, n + cp)[..., cp:]
+    else:
+        x = torch.randn(rows, n, dtype=torch.complex64, device=dev,
+                        generator=g)
+    return x, sign, scale
+
+
+@pytest.mark.parametrize("case", sorted(_CLUSTER_CASES))
+def test_dft_cluster_kernel_matches_plain_versions(dev, case):
+    """The cluster route (one row per thread-block cluster, distributed
+    shared memory) against its own plain version dft_cluster_ref (the same
+    steps and tables, within 1e-6·max|Y|) and the float64 DFT (within
+    2e-6·max|Y|), at the 16K and 32K steps' shapes (the RX input the strided
+    symbol view) and at 12288 and 65536, both signs; one launch on the
+    cluster route's counter, and no n x n planes built."""
+    x, sign, scale = _cluster_input(case, torch.Generator(
+        device=dev).manual_seed(13), dev)
+    assert dft._route(x.shape[-1]) == "cluster"
+    dft.dft_planes.cache_clear()
+    before = _route_counts()
+    got = dft.dft(x, sign, scale)
+    torch.cuda.synchronize()
+    assert _route_counts() == {k: v + (k in ("launches", "cluster"))
+                               for k, v in before.items()}
+    assert dft.dft_planes.cache_info().currsize == 0
+    assert got.shape == x.shape and got.dtype == torch.complex64
+    want = _dft64(x, sign, scale)
+    ymax = float(want.abs().max())
+    assert float((got.to(torch.complex128) - want).abs().max()) <= 2e-6 * ymax
+    own = dft.dft_cluster_ref(x, sign, scale)
+    assert float((got - own).abs().max()) <= 1e-6 * ymax
+
+
+def test_dft_cluster_kernel_replays_in_a_graph(dev):
+    """The cluster launch (cudaLaunchKernelEx with a cluster dimension)
+    captured in a CUDA graph: each replay equals the eager launch bit for
+    bit, on new data copied into the captured input too."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x, sign, scale = _cluster_input("rx_view_32k", g, dev)
+    eager = dft.dft(x, sign, scale)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        dft.dft(x, sign, scale)             # warm-up: set-up and tables
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dft.dft(x, sign, scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2, _, _ = _cluster_input("rx_view_32k", g, dev)
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, dft.dft(x2, sign, scale))
+
+
+@pytest.mark.parametrize("name", ["16k", "32k"])
+def test_pallas_flagship_step_dvbt2_on_card(dev, name):
+    """B = 2 at DVB-T2's 16K and 32K FFT sizes under fft_backend="pallas":
+    K4 launched twice, both on the cluster route, K1 once, payloads exact
+    and equal to the CPU run (the plain version)."""
+    n = {"16k": 16384, "32k": 32768}[name]
+    cfg = ModemConfig(fft_size=n, num_data_subc=n // 2,
+                      num_pilot_subc=n // 256, cp_size=n // 8, num_symb=2,
+                      pr_sin_len=n // 16, mod_type=6)
+    payload = np.random.default_rng(n).integers(
+        0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    before = _route_counts()
+    k1 = extract.extract_windows.launches
+    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+    torch.cuda.synchronize()
+    assert extract.extract_windows.launches == k1 + 1
+    assert _route_counts() == {k: v + 2 * (k in ("launches", "cluster"))
+                               for k, v in before.items()}
+    assert bool(s.found.all()) and not bool(s.frame_start.any())
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
+                                       fft_backend="pallas"))
+    res_c, _ = cpu(torch.from_numpy(payload))
+    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
 
 
 def test_pallas_flagship_step_1536_on_card(dev):

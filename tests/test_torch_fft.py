@@ -126,16 +126,20 @@ def test_dft_leading_dims_and_wrapper_on_cpu():
 
 @pytest.mark.parametrize("n,route", [
     (8, "dense"), (16, "radix"), (500, "mixed"), (512, "radix"),
-    (8192, "radix"), (16384, "dense"), (1536, "mixed"), (600, "mixed"),
+    (8192, "radix"), (16384, "cluster"), (1536, "mixed"), (600, "mixed"),
     (448, "mixed"), (6144, "mixed"), (509, "bluestein"), (4093, "bluestein"),
-    (8191, "dense"), (0, "dense")])
+    (8191, "dense"), (0, "dense"), (12288, "cluster"), (13122, "cluster"),
+    (24576, "cluster"), (32768, "cluster"), (65536, "cluster"),
+    (19683, "dense"), (39366, "dense"), (65537, "dense"), (131072, "dense")])
 def test_dft_route_by_size(n, route):
     """The kernel is chosen by n alone: the radix FFT for every power of two
     from 16 to 8192, the mixed-radix FFT for every other 7-smooth n from 16
-    to 8192, Bluestein for every other n from 16 to 4096, the dense product
-    for what is left (n = 0 too: an empty launch); each plain pass version
-    refuses the sizes its kernel does not take (the mixed one takes the
-    radix route's too), and so does a launch forced onto such a kernel."""
+    to 8192, the cluster FFT for every 7-smooth n from 8193 to 65536 with a
+    split n = c·L (c in 2, 4, 8; L <= 8192), Bluestein for every other n
+    from 16 to 4096, the dense product for what is left (n = 0 too: an empty
+    launch); each plain pass version refuses the sizes its kernel does not
+    take (the mixed one takes the radix route's too), and so does a launch
+    forced onto such a kernel."""
     assert tdft._route(n) == route
     x = torch.zeros((1, n), dtype=torch.complex64)
     if route != "radix":
@@ -143,9 +147,14 @@ def test_dft_route_by_size(n, route):
             tdft.dft_radix_ref(x)
         with pytest.raises(ValueError, match="does not take"):
             tdft._launch(x, -1, 1.0, "radix")
-    if route in ("bluestein", "dense"):
+    if route in ("cluster", "bluestein", "dense"):
         with pytest.raises(ValueError, match="7-smooth"):
             tdft.dft_mixed_ref(x)
+    if route != "cluster":
+        with pytest.raises(ValueError, match="7-smooth from 8193"):
+            tdft.dft_cluster_ref(x)
+        with pytest.raises(ValueError, match="does not take"):
+            tdft._launch(x, -1, 1.0, "cluster")
     if route != "bluestein":
         with pytest.raises(ValueError, match="is not from"):
             tdft.dft_bluestein_ref(x)
@@ -303,16 +312,24 @@ def test_dft_mixed_and_bluestein_refs_match_dft_pallas(n, sign):
 
 
 def test_new_routes_on_cpu_run_dft_ref():
-    """On CPU tensors dft is dft_ref on every route, with no launch
+    """On CPU tensors dft is dft_ref on every route but the cluster one,
+    and dft_cluster_ref there (building no n x n planes), with no launch
     counted."""
     before = (tdft.dft.launches, tdft.dft.mixed_launches,
-              tdft.dft.bluestein_launches, tdft.dft.dense_launches)
+              tdft.dft.cluster_launches, tdft.dft.bluestein_launches,
+              tdft.dft.dense_launches)
     rng = np.random.default_rng(21)
     for n in (500, 509):
         x = _t(_crandn(rng, (3, n), np.complex64))
         assert torch.equal(tdft.dft(x, +1, 0.5), tdft.dft_ref(x, +1, 0.5))
+    planes = tdft.dft_planes.cache_info()
+    x = _t(_crandn(rng, (2, 16384), np.complex64))
+    assert torch.equal(tdft.dft(x, +1, 0.5),
+                       tdft.dft_cluster_ref(x, +1, 0.5))
+    assert tdft.dft_planes.cache_info() == planes
     assert (tdft.dft.launches, tdft.dft.mixed_launches,
-            tdft.dft.bluestein_launches, tdft.dft.dense_launches) == before
+            tdft.dft.cluster_launches, tdft.dft.bluestein_launches,
+            tdft.dft.dense_launches) == before
 
 
 def test_mixed_plans_and_twiddle_table():
