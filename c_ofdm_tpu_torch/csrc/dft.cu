@@ -23,6 +23,11 @@
 //   TX  [128, 16384] / [64, 32768], sign +1: 33.6 MB -> 10.0 us
 //   RX  [192, 16384] / [96, 32768], sign -1: 50.3 MB -> 15.0 us
 //   (5·M·n·log2 n: 367 / 393 MFLOP a step -> 5.5 / 5.9 us)
+// and at LTE 5G broadcast's 0.37 kHz numerology (3GPP TS 36.211 Rel-16:
+// an 82944-point FFT, CP 9216; B = 16 frames):
+//   TX  [32, 82944], sign +1: 42.5 MB -> 12.7 us
+//   RX  [48, 82944], sign -1: 63.7 MB -> 19.0 us
+//   (542 MFLOP a step -> 8.1 us)
 // An FFT does 5·log2(n) / 16 = 2.8 FLOP per byte moved at n = 512 (3.3 at
 // 1536), far below the card's float32 ridge of 67e12 / 3.35e12 = 20
 // FLOP/B, so the bytes bound it and the FLOPs hide under the memory time.
@@ -78,30 +83,46 @@
 //   6144: every exchange conflict-free), one barrier per pass.  Rows per
 //   block max(1, 256 / T); 2 x 12 KB per row at n = 1536, 128 KB at most.
 //   Plain version: ops/dft.py::dft_mixed_ref.
-// * cluster, every 7-smooth n from 8193 to 65536 that splits as n = c·L
-//   with c in {2, 4, 8} and L <= 8192 (DVB-T2's 16K and 32K, 12288):
-//   cluster_fft_kernel<c> below, a four-step FFT with one row per thread
-//   block cluster of c blocks, the row held in the cluster's distributed
-//   shared memory.  Block r loads the L points x[c·i + r] (all c blocks of
-//   a cluster read the same lines at once, so the L2 absorbs the stride and
-//   the HBM sees each byte once) and runs the mixed route's passes on them
-//   in its own shared memory (ceil(L / 8) threads, two buffers of L
-//   points); after a cluster barrier, block q reads the c values X_r[k1] of
-//   its slice of k1 from the c blocks' shared memory (map_shared_rank),
-//   multiplies X_r[k1] by exp(sign·2πi·r·k1/n) (a float64 table rounded
-//   once, ops/dft.py::cluster_twiddles), runs the c-point butterfly and
-//   writes y[k1 + L·k2] in c contiguous runs, times scale.  x and y move
-//   once; each point crosses the SM-to-SM network once.  The split
-//   (ops/dft.py::_cluster_split) takes the least c with L <= 4096, else
-//   the least with L <= 8192: 16384 = 4 x 4096, 32768 = 8 x 4096, 65536 =
-//   8 x 8192.  Blocks of L = 4096 points (512 threads, 64 KB, compiled for
-//   3 to an SM) were the fastest of the splits timed on the H100 at both
-//   steps' shapes (chip_smoke.py phase 18 times the others), so few rows
-//   still fill the card.  Launched with
-//   cudaLaunchKernelEx and a cluster dimension
-//   (capturable in a CUDA graph); c_ofdm_cluster_prepare sets the dynamic
-//   shared memory limit and checks with cudaOccupancyMaxActiveClusters
-//   that a cluster fits.  Plain version: ops/dft.py::dft_cluster_ref.
+// * cluster, every 7-smooth n from 8193 to 131072 that splits as n = c·L
+//   with c a 7-smooth block count from 3 to 16 and L <= 8192 (DVB-T2's 16K
+//   and 32K, LTE 5G broadcast's 82944, 12288, 3^9 = 19683):
+//   cluster_fft_kernel<c, points> below, a four-step FFT with one row per
+//   thread block cluster of c blocks, the row held in the cluster's
+//   distributed shared memory.  Block r loads the L points x[c·i + r] (all
+//   c blocks of a cluster read the same lines at once, so the HBM sees each
+//   byte once; the L2 sends each block whole sectors, up to 4x the bytes
+//   it uses) and runs the mixed route's passes on them in its own shared
+//   memory (two buffers of L points; 8 points a thread up to L = 4096, 16
+//   above, so that at most 512 threads hold a block and two blocks of up
+//   to 110.6 KB fit an SM); after a cluster barrier, block q reads the c
+//   values X_r[k1] of its slice of k1 from the c blocks' shared memory
+//   (map_shared_rank), multiplies X_r[k1] by exp(sign·2πi·r·k1/n) (a
+//   float64 table rounded once, ops/dft.py::cluster_twiddles), runs the
+//   c-point butterfly in registers and writes y[k1 + L·k2] in c contiguous
+//   runs, times scale.  The butterfly is the mixed passes' own for c in
+//   {3, 4, 5, 7, 8}; a composite c = a·b (6, 9, 10, 12, 14, 15, 16)
+//   runs b a-point DFTs, rotates their outputs by exp(sign·2πi·m2·k1/c)
+//   (exactly where that is ±1 or ±i, else by a float32 constant) and runs
+//   a b-point DFTs (dft_two).  x and y move once; each point crosses the
+//   SM-to-SM network once.  The split (ops/dft.py::_cluster_split) takes
+//   the least c with L <= 4096, else the least with L <= 8192: 16384 = 4 x
+//   4096, 32768 = 8 x 4096, 65536 = 16 x 4096, 19683 = 9 x 2187, 82944 =
+//   12 x 6912.  Blocks of L = 4096 points (512 threads, 64 KB, compiled for
+//   3 to an SM) were the fastest of the splits timed on the H100 at the
+//   16K and 32K steps' shapes, and 12 x 6912 beat 16 x 5184 at 82944
+//   (chip_smoke.py phase 18 times the other splits).  Clusters of more than
+//   8 blocks are the H100's non-portable sizes; a cluster sits in one GPC
+//   (16-18 SMs), so the card holds 16 clusters of 12 blocks of 6912 points
+//   at once (7 at 8 points a thread, one 864-thread block an SM), and a
+//   step of 48 rows takes waves.  What bounds the route at these sizes is
+//   not the bytes: each wave of rows pays the load, the passes (latency-
+//   and instruction-bound at one or two blocks an SM), two cluster
+//   barriers and the exchange in turn.  Launched with cudaLaunchKernelEx
+//   and a cluster dimension (capturable in a CUDA graph);
+//   c_ofdm_cluster_prepare allows the non-portable sizes, sets the dynamic
+//   shared memory limit (and, for 16-point blocks, the largest shared
+//   memory carveout) and checks with cudaOccupancyMaxActiveClusters that a
+//   cluster fits.  Plain version: ops/dft.py::dft_cluster_ref.
 // * bluestein, every other n from 16 to 4096 (primes such as 509): the
 //   chirp-z transform in one kernel, bluestein_kernel<log2 m> below, one
 //   row per block of m / 8 threads, m the power of two >= 2n - 1 (and
@@ -117,7 +138,8 @@
 //   shared memory (64 KB at m = 8192).  Plain version:
 //   ops/dft.py::dft_bluestein_ref.
 // * dense, what is left (n < 16, non-7-smooth n above 4096, and 7-smooth n
-//   above 8192 with no such split: odd n, n above 65536): the complex GEMM
+//   above 8192 with no such split: 7^6 = 117649, n above 131072): the
+//   complex GEMM
 //   dft_kernel below against W as two float32 planes [n, n] (times scale,
 //   built once per (n, sign, scale) by the wrapper).  Its own floor is
 //   8·M·n² FLOPs on the float32 CUDA cores, so it is no route for the sizes
@@ -534,6 +556,106 @@ __device__ __forceinline__ void dft_any(float2 (&u)[R], float s) {
   }
 }
 
+// cos and sin of 2π·q/R for the rotations inside the composite butterflies
+// (q/R in lowest terms: the R and q that Split's factorisations need),
+// computed in double and rounded once (the values of ops/dft.py::_root);
+// R = 3, 5, 7 are root's.  Folds as root does.
+__device__ __forceinline__ float2 turn(int radix, int q) {
+  switch (radix * 16 + q) {
+    case 6 * 16 + 1: return make_float2(0.5f, 0.866025388f);
+    case 8 * 16 + 1: return make_float2(0.707106769f, 0.707106769f);
+    case 8 * 16 + 3: return make_float2(-0.707106769f, 0.707106769f);
+    case 9 * 16 + 1: return make_float2(0.766044438f, 0.642787635f);
+    case 9 * 16 + 2: return make_float2(0.173648179f, 0.98480773f);
+    case 9 * 16 + 4: return make_float2(-0.939692616f, 0.342020154f);
+    case 10 * 16 + 1: return make_float2(0.809017003f, 0.587785244f);
+    case 10 * 16 + 3: return make_float2(-0.309017003f, 0.95105654f);
+    case 12 * 16 + 1: return make_float2(0.866025388f, 0.5f);
+    case 14 * 16 + 1: return make_float2(0.90096885f, 0.433883727f);
+    case 14 * 16 + 3: return make_float2(0.222520933f, 0.974927902f);
+    case 14 * 16 + 5: return make_float2(-0.623489797f, 0.781831503f);
+    case 15 * 16 + 1: return make_float2(0.91354543f, 0.406736642f);
+    case 15 * 16 + 2: return make_float2(0.669130623f, 0.74314481f);
+    case 15 * 16 + 4: return make_float2(-0.104528464f, 0.994521916f);
+    case 15 * 16 + 8: return make_float2(-0.978147626f, -0.207911685f);
+    case 16 * 16 + 1: return make_float2(0.923879504f, 0.382683426f);
+    case 16 * 16 + 3: return make_float2(0.382683426f, 0.923879504f);
+    case 16 * 16 + 9: return make_float2(-0.923879504f, -0.382683426f);
+    default: return root(radix, q);
+  }
+}
+
+__host__ __device__ constexpr int gcd_of(int a, int b) {
+  return b == 0 ? a : gcd_of(b, a % b);
+}
+
+// a · exp(s·2πi·q/R): exact where q/R is 0, 1/2, 1/4 or 3/4 (mod 1), else
+// times the float32 root (ops/dft.py::_rotate)
+__device__ __forceinline__ float2 rotate(float2 a, int radix, int q,
+                                         float s) {
+  q %= radix;
+  const int g = gcd_of(q, radix);
+  radix /= g;
+  q /= g;
+  if (q == 0) return a;
+  if (radix == 2) return make_float2(-a.x, -a.y);
+  if (radix == 4) return mul_si(a, q == 1 ? s : -s);
+  const float2 w = turn(radix, q);
+  return cmul(a, make_float2(w.x, s * w.y));
+}
+
+// c = A·B for the composite butterflies (ops/dft.py::_BUTTERFLY_FACTORS)
+template <int C> struct Split;
+template <> struct Split<6> { static constexpr int A = 2, B = 3; };
+template <> struct Split<9> { static constexpr int A = 3, B = 3; };
+template <> struct Split<10> { static constexpr int A = 2, B = 5; };
+template <> struct Split<12> { static constexpr int A = 4, B = 3; };
+template <> struct Split<14> { static constexpr int A = 2, B = 7; };
+template <> struct Split<15> { static constexpr int A = 3, B = 5; };
+template <> struct Split<16> { static constexpr int A = 4, B = 4; };
+
+// y_k = Σ_m u_m · exp(s·2πi·mk/C) for a composite C = A·B, in place, in
+// registers: with m = B·m1 + m2 and k = k1 + A·k2, the A-point DFTs over
+// m1 for each m2, output k1 rotated by exp(s·2πi·m2·k1/C), then the
+// B-point DFTs over m2 for each k1 (ops/dft.py::_dft_two)
+template <int C>
+__device__ __forceinline__ void dft_two(float2 (&u)[C], float s) {
+  constexpr int kA = Split<C>::A;
+  constexpr int kB = Split<C>::B;
+  float2 z[C];   // z[m2·A + k1]
+#pragma unroll
+  for (int m2 = 0; m2 < kB; ++m2) {
+    float2 a[kA];
+#pragma unroll
+    for (int m1 = 0; m1 < kA; ++m1) a[m1] = u[kB * m1 + m2];
+    dft_any<kA>(a, s);
+#pragma unroll
+    for (int k1 = 0; k1 < kA; ++k1) {
+      z[m2 * kA + k1] = rotate(a[k1], C, m2 * k1, s);
+    }
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < kA; ++k1) {
+    float2 b[kB];
+#pragma unroll
+    for (int m2 = 0; m2 < kB; ++m2) b[m2] = z[m2 * kA + k1];
+    dft_any<kB>(b, s);
+#pragma unroll
+    for (int k2 = 0; k2 < kB; ++k2) u[k1 + kA * k2] = b[k2];
+  }
+}
+
+// The cluster kernel's C-point butterfly: a radix of the mixed passes, or
+// two factors of them
+template <int C>
+__device__ __forceinline__ void dft_cluster(float2 (&u)[C], float s) {
+  if constexpr (C == 2 || C == 3 || C == 4 || C == 5 || C == 7 || C == 8) {
+    dft_any<C>(u, s);
+  } else {
+    dft_two<C>(u, s);
+  }
+}
+
 // What a mixed_fft_kernel launch needs to know of its row length, passed by
 // value: radices[i] = (plan >> 4i) & 15, passes of them.
 struct MixedPlan {
@@ -550,7 +672,8 @@ struct MixedPlan {
 __device__ __forceinline__ int mswz(int i) { return i ^ ((i >> 3) & 15); }
 
 // One pass (radix R, sub-transforms of ns points done) of one row: the
-// thread's butterflies j = t + b·T, b < ceil(8 / R), the last ones masked,
+// thread's butterflies j = t + b·T, b < ceil(PT / R) (PT points a thread,
+// T = ceil(n / PT) threads a row), the last ones masked,
 // each read (from x in the first pass, point i at xr[i·XS], else from the
 // row's buffer ``in``),
 // twiddled, transformed in registers and written to expand(j, ns, R) +
@@ -562,13 +685,13 @@ __device__ __forceinline__ int mswz(int i) { return i ^ ((i >> 3) & 15); }
 // unrolled, to keep all of the thread's loads from x in flight; unrolled
 // in every pass (twiddle loads hoisted too), the kernel spills under the
 // 64-register cap of 1024-thread blocks.
-template <int R, bool FIRST, int XS>
+template <int R, bool FIRST, int XS, int PT>
 __device__ __forceinline__ void mixed_pass(
     const MixedPlan& p, int ns, bool last, bool live, int t,
     const float2* __restrict__ xr, const float2* __restrict__ in,
     float2* __restrict__ out, const float2* __restrict__ tw,
     float2* __restrict__ yr, float s, float scale) {
-  constexpr int kB = (8 + R - 1) / R;
+  constexpr int kB = (PT + R - 1) / R;
   const int nb = p.n / R;
 #pragma unroll (FIRST ? kB : 1)
   for (int b = 0; b < kB; ++b) {
@@ -602,18 +725,18 @@ __device__ __forceinline__ void mixed_pass(
   if (!last) __syncthreads();
 }
 
-template <int R, int XS>
+template <int R, int XS, int PT>
 __device__ __forceinline__ void mixed_pass(
     const MixedPlan& p, int ns, bool first, bool last, bool live, int t,
     const float2* __restrict__ xr, const float2* __restrict__ in,
     float2* __restrict__ out, const float2* __restrict__ tw,
     float2* __restrict__ yr, float s, float scale) {
   if (first) {
-    mixed_pass<R, true, XS>(p, ns, last, live, t, xr, in, out, tw, yr, s,
-                            scale);
+    mixed_pass<R, true, XS, PT>(p, ns, last, live, t, xr, in, out, tw, yr,
+                                s, scale);
   } else {
-    mixed_pass<R, false, XS>(p, ns, last, live, t, xr, in, out, tw, yr, s,
-                             scale);
+    mixed_pass<R, false, XS, PT>(p, ns, last, live, t, xr, in, out, tw, yr,
+                                 s, scale);
   }
 }
 
@@ -621,7 +744,7 @@ __device__ __forceinline__ void mixed_pass(
 // buffers rb, the plan's twiddle table tw; the last pass writes y times
 // scale (yr), or with KEEP the row's buffer rb + ((passes - 1) & 1)·stride
 // in natural order under mswz, followed by a barrier.
-template <int XS, bool KEEP>
+template <int XS, int PT, bool KEEP>
 __device__ __forceinline__ void mixed_passes(
     const MixedPlan& p, bool live, int t, const float2* __restrict__ xr,
     float2* __restrict__ rb, const float2* __restrict__ tw,
@@ -636,18 +759,18 @@ __device__ __forceinline__ void mixed_passes(
     const float2* ptw = tw;
     if (!first) tw += (radix - 1) * ns;   // the next pass's block
     switch (radix) {
-      case 8: mixed_pass<8, XS>(p, ns, first, last, live, t, xr, in, out,
-                                ptw, yr, s, scale); break;
-      case 4: mixed_pass<4, XS>(p, ns, first, last, live, t, xr, in, out,
-                                ptw, yr, s, scale); break;
-      case 2: mixed_pass<2, XS>(p, ns, first, last, live, t, xr, in, out,
-                                ptw, yr, s, scale); break;
-      case 3: mixed_pass<3, XS>(p, ns, first, last, live, t, xr, in, out,
-                                ptw, yr, s, scale); break;
-      case 5: mixed_pass<5, XS>(p, ns, first, last, live, t, xr, in, out,
-                                ptw, yr, s, scale); break;
-      default: mixed_pass<7, XS>(p, ns, first, last, live, t, xr, in, out,
-                                 ptw, yr, s, scale); break;
+      case 8: mixed_pass<8, XS, PT>(p, ns, first, last, live, t, xr, in,
+                                    out, ptw, yr, s, scale); break;
+      case 4: mixed_pass<4, XS, PT>(p, ns, first, last, live, t, xr, in,
+                                    out, ptw, yr, s, scale); break;
+      case 2: mixed_pass<2, XS, PT>(p, ns, first, last, live, t, xr, in,
+                                    out, ptw, yr, s, scale); break;
+      case 3: mixed_pass<3, XS, PT>(p, ns, first, last, live, t, xr, in,
+                                    out, ptw, yr, s, scale); break;
+      case 5: mixed_pass<5, XS, PT>(p, ns, first, last, live, t, xr, in,
+                                    out, ptw, yr, s, scale); break;
+      default: mixed_pass<7, XS, PT>(p, ns, first, last, live, t, xr, in,
+                                     out, ptw, yr, s, scale); break;
     }
     ns *= radix;
   }
@@ -665,17 +788,17 @@ mixed_fft_kernel(const float2* __restrict__ x, int64_t ldx,
   const float2* xr = x + (live ? row : 0) * ldx;
   float2* yr = y + (live ? row : 0) * p.n;
   float2* rb = mbuf + 2 * lr * p.stride;   // the row's two buffers
-  mixed_passes<1, false>(p, live, t, xr, rb, tw, yr, s, scale);
+  mixed_passes<1, 8, false>(p, live, t, xr, rb, tw, yr, s, scale);
 }
 
 constexpr int kMixedMaxSmem = 2 * 8192 * static_cast<int>(sizeof(float2));
 
 // MixedPlan for a row of n points from the plan word (4 bits a radix,
-// passes of them), one row per block of at most 1024 threads when
-// one_row; cudaErrorInvalidValue unless the radices are all in {2, 3, 4,
-// 5, 7, 8}, multiply to n and n is from 16 to 8192.
+// passes of them), `points` points a thread, one row per block of at most
+// 1024 threads when one_row; cudaErrorInvalidValue unless the radices are
+// all in {2, 3, 4, 5, 7, 8}, multiply to n and n is from 16 to 8192.
 int make_plan(long long n, unsigned long long plan, int passes, bool one_row,
-              MixedPlan* p) {
+              int points, MixedPlan* p) {
   if (n < 16 || n > 8192 || passes < 2 || passes > 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -691,7 +814,7 @@ int make_plan(long long n, unsigned long long plan, int passes, bool one_row,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p->n = static_cast<int>(n);
-  p->t = (p->n + 7) / 8;
+  p->t = (p->n + points - 1) / points;
   p->rows = p->t >= 256 || one_row ? 1 : 256 / p->t;
   p->stride = (p->n + 15) / 16 * 16;
   p->passes = passes;
@@ -701,13 +824,23 @@ int make_plan(long long n, unsigned long long plan, int passes, bool one_row,
 
 // ------------------------------------------------------------- cluster
 
-// Blocks per SM the cluster kernel of MAXT threads is compiled for (the
-// register cap 65536 / (MAXT·blocks)): uncapped, it takes more registers
-// than the 42 a thread that 3 blocks of 512 threads allow, so they fit only
-// 2 to an SM where their 64 KB of shared memory allows 3; capped for 3 (40
-// registers, no spills) the 16K and 32K steps ran faster on the H100.
-__host__ __device__ constexpr int cluster_min_blocks(int maxt) {
-  return maxt >= 1024 ? 1 : 3;
+// Points a thread of the cluster kernel takes for blocks of L points: 8
+// up to 4096 (at most 512 threads, 64 KB of shared memory), else 16 (at
+// most 512 threads for up to 128 KB), so that two such blocks fit an SM:
+// with 8 (864 threads at L = 6912) the registers held one block an SM and
+// the card ran only 7 clusters of 12 at once.
+int cluster_points(long long L) { return L > 4096 ? 16 : 8; }
+
+// Blocks per SM the cluster kernel of C blocks a cluster and PT points a
+// thread is compiled for (the register cap 65536 / (512·blocks)):
+// uncapped, the 8-point kernel takes more registers than the 42 a thread
+// that 3 blocks allow, so they fit only 2 to an SM where their 64 KB of
+// shared memory allows 3; capped for 3 (40 registers, no spills at C <=
+// 8) the 16K and 32K steps ran faster on the H100.  Above 8 blocks the
+// butterfly holds 18-32 floats of u alone, and 16-point blocks take up to
+// 128 KB of shared memory: those are compiled for 2 (64 registers).
+__host__ __device__ constexpr int cluster_min_blocks(int c, int pt) {
+  return pt == 8 && c <= 8 ? 3 : 2;
 }
 
 // One row of n = C·L points per cluster of C blocks (cluster rank q =
@@ -722,8 +855,8 @@ __host__ __device__ constexpr int cluster_min_blocks(int maxt) {
 // exp(s·2πi·r·k1/n), runs the C-point butterfly and writes y[k1 + L·k2]
 // times scale: C runs of S consecutive points.  A second cluster barrier
 // keeps every block's buffers alive until no block reads them.
-template <int C, int MAXT>
-__global__ void __launch_bounds__(MAXT, cluster_min_blocks(MAXT))
+template <int C, int PT>
+__global__ void __launch_bounds__(512, cluster_min_blocks(C, PT))
 cluster_fft_kernel(const float2* __restrict__ x, int64_t ldx,
                    const float2* __restrict__ tw,
                    const float2* __restrict__ ctw, float2* __restrict__ y,
@@ -735,8 +868,8 @@ cluster_fft_kernel(const float2* __restrict__ x, int64_t ldx,
   const int64_t row = static_cast<int64_t>(blockIdx.x) / C;
   const int t = threadIdx.x;
   const int L = p.n;
-  mixed_passes<C, true>(p, true, t, x + row * ldx + q, mbuf, tw, nullptr, s,
-                        1.f);
+  mixed_passes<C, PT, true>(p, true, t, x + row * ldx + q, mbuf, tw, nullptr,
+                            s, 1.f);
   const float2* fin = mbuf + ((p.passes - 1) & 1) * p.stride;
   cluster.sync();   // every block's X_r is in its shared memory
 
@@ -752,7 +885,7 @@ cluster_fft_kernel(const float2* __restrict__ x, int64_t ldx,
       u[r] = cmul(*cluster.map_shared_rank(fin + at, r),
                   __ldg(ctw + (r - 1) * L + k1));
     }
-    dft_small<C>(u, s);
+    dft_cluster<C>(u, s);
 #pragma unroll
     for (int k2 = 0; k2 < C; ++k2) {
       yr[k1 + k2 * L] = make_float2(u[k2].x * scale, u[k2].y * scale);
@@ -765,19 +898,29 @@ using ClusterKernel = void (*)(const float2*, int64_t, const float2*,
                                const float2*, float2*, MixedPlan, float,
                                float);
 
-// The instance for c blocks a cluster and blocks of `threads`: compiled
-// for 512 or 1024 threads (the less that holds them); null for another c.
+// The instance for c blocks a cluster and `points` points a thread (8 or
+// 16, cluster_points); null for a c that ops/dft.py::CLUSTER_SPLITS does
+// not name.
 template <int C>
-ClusterKernel cluster_kernel_of(int threads) {
-  if (threads <= 512) return cluster_fft_kernel<C, 512>;
-  return cluster_fft_kernel<C, 1024>;
+ClusterKernel cluster_kernel_of(int points) {
+  if (points == 8) return cluster_fft_kernel<C, 8>;
+  return cluster_fft_kernel<C, 16>;
 }
 
-ClusterKernel cluster_kernel(int c, int threads) {
+ClusterKernel cluster_kernel(int c, int points) {
   switch (c) {
-    case 2: return cluster_kernel_of<2>(threads);
-    case 4: return cluster_kernel_of<4>(threads);
-    case 8: return cluster_kernel_of<8>(threads);
+    case 3: return cluster_kernel_of<3>(points);
+    case 4: return cluster_kernel_of<4>(points);
+    case 5: return cluster_kernel_of<5>(points);
+    case 6: return cluster_kernel_of<6>(points);
+    case 7: return cluster_kernel_of<7>(points);
+    case 8: return cluster_kernel_of<8>(points);
+    case 9: return cluster_kernel_of<9>(points);
+    case 10: return cluster_kernel_of<10>(points);
+    case 12: return cluster_kernel_of<12>(points);
+    case 14: return cluster_kernel_of<14>(points);
+    case 15: return cluster_kernel_of<15>(points);
+    case 16: return cluster_kernel_of<16>(points);
     default: return nullptr;
   }
 }
@@ -977,7 +1120,7 @@ extern "C" int c_ofdm_mixed_fft(const void* x, long long ldx, const void* tw,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MixedPlan p;
-  const int rc = make_plan(n, plan, passes, false, &p);
+  const int rc = make_plan(n, plan, passes, false, 8, &p);
   if (rc != 0) return rc;
   const long long blocks = (m + p.rows - 1) / p.rows;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -991,20 +1134,33 @@ extern "C" int c_ofdm_mixed_fft(const void* x, long long ldx, const void* tw,
 }
 
 // The set-up c_ofdm_cluster_fft needs on the current device for c blocks
-// a cluster and rows of L points (plan, passes: L's mixed plan): the
-// dynamic shared memory limit, then an occupancy check; *clusters is how
-// many such clusters fit on the device at once.
+// a cluster and rows of L points (plan, passes: L's mixed plan): above 8
+// blocks leave to use a non-portable cluster size, the dynamic shared
+// memory limit, then an occupancy check; *clusters is how many such
+// clusters fit on the device at once (0, an error, where none does).
 extern "C" int c_ofdm_cluster_prepare(int c, long long L,
                                       unsigned long long plan, int passes,
                                       int* clusters) {
   MixedPlan p;
-  const int rc = make_plan(L, plan, passes, true, &p);
+  const int rc = make_plan(L, plan, passes, true, cluster_points(L), &p);
   if (rc != 0) return rc;
-  const ClusterKernel kernel = cluster_kernel(c, p.t);
+  const ClusterKernel kernel = cluster_kernel(c, cluster_points(L));
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
+  cudaError_t e = cudaSuccess;
+  if (c > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMixedMaxSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (cluster_points(L) == 16) {   // room for two blocks of up to 110.6 KB
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(p, c, c, nullptr, &attr);
   e = cudaOccupancyMaxActiveClusters(
@@ -1016,8 +1172,9 @@ extern "C" int c_ofdm_cluster_prepare(int c, long long L,
 // x [m rows, row stride ldx] complex64, tw L's mixed twiddle table
 // (ops/dft.py::mixed_twiddles(L)), ctw [(c - 1)·L] complex64
 // (exp(sign·2πi·r·k1/(c·L)), r major from 1; ops/dft.py::cluster_twiddles),
-// y [m, c·L] complex64 (contiguous); c in {2, 4, 8}, L from 16 to 8192 with
-// the plan of c_ofdm_mixed_fft, after c_ofdm_cluster_prepare(c, L, ...).
+// y [m, c·L] complex64 (contiguous); c a 7-smooth count from 3 to 16, L
+// from 16 to 8192 with the plan of c_ofdm_mixed_fft, after
+// c_ofdm_cluster_prepare(c, L, ...).
 extern "C" int c_ofdm_cluster_fft(const void* x, long long ldx,
                                   const void* tw, const void* ctw, void* y,
                                   long long m, int c, long long L,
@@ -1027,9 +1184,9 @@ extern "C" int c_ofdm_cluster_fft(const void* x, long long ldx,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MixedPlan p;
-  const int rc = make_plan(L, plan, passes, true, &p);
+  const int rc = make_plan(L, plan, passes, true, cluster_points(L), &p);
   if (rc != 0) return rc;
-  const ClusterKernel kernel = cluster_kernel(c, p.t);
+  const ClusterKernel kernel = cluster_kernel(c, cluster_points(L));
   if (kernel == nullptr || m > 0x7fffffffLL / c) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

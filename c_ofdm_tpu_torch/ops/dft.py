@@ -13,20 +13,22 @@ hand-written Hopper kernels in ``csrc/dft.cu``, chosen by n alone
   and 7, for every other 7-smooth n (2^a·3^b·5^c·7^d) from 16 to 8192;
 * ``cluster``: a four-step FFT, one row per thread-block cluster of c
   blocks held in the cluster's distributed shared memory, for every
-  7-smooth n from 8193 to 65536 that splits as n = c·L, c in {2, 4, 8},
-  L <= 8192 (DVB-T2's 16K and 32K);
+  7-smooth n from 8193 to 131072 that splits as n = c·L, c a 7-smooth
+  block count from 3 to 16 (odd and composite c included; above 8 the
+  card's non-portable cluster sizes), L <= 8192 (DVB-T2's 16K and 32K,
+  LTE 5G broadcast's 82944);
 * ``bluestein``: the chirp-z transform, one row per block, two power-of-two
   FFTs of m >= 2n - 1 points in shared memory, for every other n from 16
   to 4096;
 * ``dense``: the complex GEMM against the n x n twiddle planes, for what is
   left (n < 16, non-7-smooth n above 4096, 7-smooth n above 8192 with no
-  such split: odd n, n above 65536).
+  such split: 7^6 = 117649, every n above 131072).
 
 Each launch adds one to ``dft.launches`` and to ``dft.<route>_launches``.
 On a CPU tensor ``dft`` runs a plain version: ``dft_cluster_ref`` at the
 sizes the cluster route takes (the twiddle planes of n = 32768 alone are
-8.6 GB), ``dft_ref`` (4 real float32 GEMMs on the twiddle planes, as the
-Pallas kernel computes) at every other n.  Anything else raises; a failed
+8.6 GB, of n = 82944 55 GB), ``dft_ref`` (4 real float32 GEMMs on the
+twiddle planes, as the Pallas kernel computes) at every other n.  Anything else raises; a failed
 launch raises too, with no fallback.
 
 ``dft_radix_ref``, ``dft_mixed_ref``, ``dft_cluster_ref`` and
@@ -53,8 +55,11 @@ from . import _kernels, fft
 RADIX_MIN_N = 16      # n / 8 threads per row, 8 points each
 RADIX_MAX_N = 8192    # n / 8 = 1024 threads, the most a block can have
 BLUESTEIN_MAX_N = 4096  # m = 8192 points, 64 KB of shared memory
-CLUSTER_MAX_N = 65536   # 8 blocks (the portable cluster size) of 8192 points
-CLUSTER_SPLITS = (2, 4, 8)  # blocks a cluster, in the order tried
+CLUSTER_MAX_N = 131072  # 16 blocks (the card's largest cluster) of 8192 points
+# blocks a cluster, in the order tried: the 7-smooth counts from 3 to 16
+# (above 8 the non-portable cluster sizes the H100 allows); 2 is never the
+# least count for an n from 8193 to 131072, so it is not built
+CLUSTER_SPLITS = (3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 15, 16)
 CLUSTER_BEST_L = 4096       # points a block where a split allows it
 ROUTES = ("radix", "mixed", "cluster", "bluestein", "dense")
 
@@ -69,11 +74,12 @@ def _smooth(n: int) -> bool:
 
 def _cluster_split(n: int) -> tuple[int, int] | None:
     """(c, L) with n = c·L for the cluster route, for a 7-smooth n from
-    8193 to 65536: the first c of ``CLUSTER_SPLITS`` that divides n with
+    8193 to 131072: the first c of ``CLUSTER_SPLITS`` that divides n with
     L <= 4096, else the first with L <= 8192; None where no c divides n so.
-    16384 = 4 x 4096, 32768 = 8 x 4096, 65536 = 8 x 8192: blocks of 4096
-    points were the fastest split on the H100 at the 16K and 32K steps
-    (``csrc/dft.cu``)."""
+    16384 = 4 x 4096, 32768 = 8 x 4096, 65536 = 16 x 4096, 19683 = 9 x
+    2187, 82944 = 12 x 6912: blocks of 4096 points were the fastest split
+    on the H100 at the 16K and 32K steps, and 12 x 6912 beat 16 x 5184 at
+    82944 (``csrc/dft.cu``)."""
     if not (RADIX_MAX_N < n <= CLUSTER_MAX_N and _smooth(n)):
         return None
     fits = [(c, n // c) for c in CLUSTER_SPLITS if n % c == 0]
@@ -100,8 +106,8 @@ def _fits(route: str, n: int) -> bool:
 def _route(n: int) -> str:
     """The first of ``ROUTES`` whose kernel takes n: "radix" for a power of
     two from 16 to 8192, "mixed" for any other 7-smooth n up to 8192,
-    "cluster" for a 7-smooth n from 8193 to 65536 with a split n = c·L (c
-    in 2, 4, 8; L <= 8192), "bluestein" for any other n up to 4096, else
+    "cluster" for a 7-smooth n from 8193 to 131072 with a split n = c·L (c
+    from 3 to 16; L <= 8192), "bluestein" for any other n up to 4096, else
     "dense"."""
     return next(r for r in ROUTES if _fits(r, n))
 
@@ -171,13 +177,21 @@ def _radices(n: int) -> list[int]:
 
 
 @functools.cache
+def _root(radix: int, q: int) -> tuple[float, float]:
+    """cos and sin of 2π·q/R, q/R in lowest terms, computed in float64 and
+    rounded once to float32: the constants of the kernels' radix-3/5/7
+    butterflies (``csrc/dft.cu::root``) and of the rotations inside a
+    composite butterfly (``turn``)."""
+    g = math.gcd(q, radix)
+    v = np.exp(2j * np.pi * (q // g) / (radix // g))
+    return float(np.float32(v.real)), float(np.float32(v.imag))
+
+
+@functools.cache
 def _odd_roots(radix: int) -> tuple[tuple[float, ...], tuple[float, ...]]:
-    """cos and sin of 2π·q/R, q < R, computed in float64 and rounded once
-    to float32: the constants of the kernel's radix-3/5/7 butterflies
-    (``csrc/dft.cu::root``)."""
-    q = np.arange(radix) * 2 * np.pi / radix
-    return (tuple(float(v) for v in np.cos(q).astype(np.float32)),
-            tuple(float(v) for v in np.sin(q).astype(np.float32)))
+    """``_root`` of 2π·q/R for q < R, as (cos, sin) tuples: the constants of
+    the kernel's radix-3/5/7 butterflies."""
+    return tuple(zip(*(_root(radix, q) for q in range(radix))))
 
 
 def _dft_odd(u: list[torch.Tensor], s: int) -> list[torch.Tensor]:
@@ -203,15 +217,58 @@ def _dft_odd(u: list[torch.Tensor], s: int) -> list[torch.Tensor]:
     return y
 
 
+# c = a·b for the kernels' composite butterflies: a-point DFTs, the
+# rotations, then b-point DFTs (csrc/dft.cu::Split)
+_BUTTERFLY_FACTORS = {6: (2, 3), 9: (3, 3), 10: (2, 5), 12: (4, 3),
+                      14: (2, 7), 15: (3, 5), 16: (4, 4)}
+
+
+def _rotate(z: torch.Tensor, radix: int, q: int, s: int) -> torch.Tensor:
+    """z · exp(s·2πi·q/R) as the kernels' ``rotate``: exact where q/R is
+    0, 1/2, 1/4 or 3/4 (mod 1), else the float32 root."""
+    q %= radix
+    g = math.gcd(q, radix)
+    radix, q = radix // g, q // g
+    if q == 0:
+        return z
+    if radix == 2:
+        return -z
+    if radix == 4:
+        return z * ((s if q == 1 else -s) * 1j)
+    cos, sin = _root(radix, q)
+    return z * complex(cos, s * sin)
+
+
+def _dft_two(u: list[torch.Tensor], s: int) -> list[torch.Tensor]:
+    """The kernels' composite butterfly of c = a·b points
+    (``_BUTTERFLY_FACTORS``): with m = b·m1 + m2 and k = k1 + a·k2, the
+    a-point DFTs over m1 for each m2, each output k1 rotated by
+    exp(s·2πi·m2·k1/c), then the b-point DFTs over m2 for each k1."""
+    c = len(u)
+    a, b = _BUTTERFLY_FACTORS[c]
+    z = [[_rotate(v, c, m2 * k1, s)
+          for k1, v in enumerate(_dft_small(u[m2::b], s))]
+         for m2 in range(b)]
+    y = [None] * c
+    for k1 in range(a):
+        for k2, v in enumerate(_dft_small([z[m2][k1] for m2 in range(b)],
+                                          s)):
+            y[k1 + a * k2] = v
+    return y
+
+
 def _dft_small(u: list[torch.Tensor], s: int) -> list[torch.Tensor]:
     """The kernels' butterflies on lists of complex tensors: y_k = Σ_m u_m
-    · exp(s·2πi·mk/R), R in {2, 3, 4, 5, 7, 8}."""
+    · exp(s·2πi·mk/R), R in {2, 3, 4, 5, 7, 8} and the composite counts of
+    ``_BUTTERFLY_FACTORS``."""
     if len(u) == 2:
         return [u[0] + u[1], u[0] - u[1]]
     if len(u) == 4:
         t0, t1 = u[0] + u[2], u[0] - u[2]
         t2, t3 = u[1] + u[3], (u[1] - u[3]) * (s * 1j)
         return [t0 + t2, t1 + t3, t0 - t2, t1 - t3]
+    if len(u) in _BUTTERFLY_FACTORS:
+        return _dft_two(u, s)
     if len(u) != 8:
         return _dft_odd(u, s)
     e = _dft_small(u[0::2], s)
@@ -356,13 +413,15 @@ def dft_cluster_ref(x: torch.Tensor, sign: int = -1,
     index k1 + L·k2: block r's L-point FFT of x[c·i + r] (``dft_mixed_ref``,
     the same passes and table as the kernel's), X_r[k1] times
     ``cluster_twiddles`` (exp(sign·2πi·r·k1/n), r > 0), the c-point
-    butterfly across r for each k1 (the kernels' ``_dft_small``) and
-    scale."""
+    butterfly across r for each k1 (the kernels' ``_dft_small``: odd c
+    as the mixed passes' radix-3/5/7 butterflies, composite c as two
+    factors) and scale."""
     n = x.shape[-1]
     if not _fits("cluster", n):
         raise ValueError(f"dft_cluster_ref: n={n} is not 7-smooth from "
                          f"{RADIX_MAX_N + 1} to {CLUSTER_MAX_N} with a split "
-                         f"n = c·L, c in {CLUSTER_SPLITS}, L <= {RADIX_MAX_N}")
+                         f"n = c·L, c in {CLUSTER_SPLITS}, "
+                         f"L <= {RADIX_MAX_N}")
     c, L = _cluster_split(n)
     data = _rows(x).to(torch.complex64)
     m = data.shape[0]

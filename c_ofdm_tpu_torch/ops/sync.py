@@ -296,7 +296,9 @@ def matched_filter_scores(spec, x: torch.Tensor) -> torch.Tensor:
         hop = C - L + 1
         nchunks = -(-n // hop)
         xp = torch.nn.functional.pad(x, (0, nchunks * hop + L - n))
-        chunks = xp.unfold(-1, C, hop)                 # [..., nchunks, C]
+        # the first nchunks windows: at L = C (hop 1) the padded signal
+        # holds one window more
+        chunks = xp.unfold(-1, C, hop)[..., :nchunks, :]   # [..., nchunks, C]
         cc = _corr_fft(chunks, spec.tensors["mf_fft_os"], C)[..., :hop]
         corr = cc.reshape(*x.shape[:-1], nchunks * hop)[..., :n].abs()
     e = x.abs() ** 2

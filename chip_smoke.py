@@ -12,7 +12,8 @@ receiver (``StreamingReceiver``, gated sync on the 41-frame ring of
 246 656 samples, S = 4 consecutive buffers at C = 1, 8 and 64 channels,
 and C = 8 under pallas); the flagship step and the streaming receiver at
 LTE's 1536-point geometry under pallas (K4's mixed route); the flagship
-step at DVB-T2's 16K and 32K FFT sizes under pallas (K4's cluster route);
+step at DVB-T2's 16K and 32K FFT sizes and at LTE 5G broadcast's 0.37
+kHz numerology (an 82944-point FFT) under pallas (K4's cluster route);
 and the
 MAC-framed link loop (``Mac``, the channel
 simulator ``apply_channel``, the batch and streaming receivers); and the
@@ -63,7 +64,10 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               [2048, 510] sign +1 and RX view (row stride 638, Bluestein,
               m = 1024); 8191 (dense); the DVB-T2 steps' TX [128, 16384] /
               [64, 32768] sign +1 and RX views (row strides 18432 / 36864),
-              12288 scaled and 65536 (cluster); error <= 1e-5
+              12288 scaled and 65536, the 0.37 kHz broadcast step's TX
+              [16, 2, 82944] sign +1 and RX view (row stride 92160),
+              19683, 39366 scaled, 15625, 16807, 98304 and 131072
+              (cluster: c = 12, 9, 6, 5, 7, 12, 16); error <= 1e-5
               max|Y| and <= 4x the plain version's (dft_ref; the cluster
               route's own); radix, mixed, cluster and
               Bluestein cases also within 1e-6 max|Y| of the route's own
@@ -91,9 +95,11 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               [2048, 1536] and RX view [2304, 1536], the Bluestein route at
               [2304, 509] and at the 510 step's TX [2048, 510] and RX view
               [2304, 510], the cluster route at the 16K and 32K steps' TX
-              and RX view (the dense route at 16K only, its 4.3 GB of
-              planes dropped after; the cluster route's other splits
-              beside it, cold), per step against the 25.04 us bound;
+              and RX view and the 0.37 kHz broadcast step's TX [32, 82944]
+              and RX view [48, 82944], per step against its bound (25.04
+              and 31.69 us), and at [64, 19683] (the dense route at 16K
+              and 19683 only, its 4.3 / 3.1 GB of planes dropped after;
+              the cluster route's other splits beside it, cold);
               every column's device time by CUDA events around one CUDA
               graph of its calls
  19 gather-timing  the card's floor per launch (an empty kernel on grids
@@ -184,7 +190,10 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               Bluestein), at DVB-T2's 16K (B = 64) and 32K (B = 32) sizes
               (K1 + 2 K4 cluster; impaired captures, offsets in [0, 4096],
               CFO 1e-5 / 2e-6, 30 dB, decoded exactly, graph = eager; the
-              16K step also captured on the dense route), the wideband step
+              16K step also captured on the dense route) and at LTE 5G
+              broadcast's 0.37 kHz numerology (82944-point FFT, B = 16; K1
+              + 2 K4 cluster, 12-block clusters; impaired as at 32K, CFO
+              2e-6), the wideband step
               at B = 128 under ct (K1 wide);
               StreamingReceiver on phase 8's rings, S = 4, gated, at C = 1
               (K2 twice), 8 and 64 (K3 twice), and C = 8 under pallas (K3
@@ -249,6 +258,13 @@ DVBT2_16K = dict(fft_size=16384, num_data_subc=8192, num_pilot_subc=64,
 DVBT2_32K = dict(fft_size=32768, num_data_subc=16384, num_pilot_subc=128,
                  cp_size=4096, num_symb=2, pr_sin_len=2048, mod_type=6)
 B_16K, B_32K = 64, 32
+# LTE 5G broadcast's 0.37 kHz numerology (3GPP TS 36.211 Rel-16: an
+# 82944-point FFT at 30.72 MHz, CP 9216, 100 RB x 486 = 48600 occupied
+# subcarriers at 20 MHz): K4's cluster route at 12 blocks of 6912 points,
+# B = 16 frames a step (4.43 M samples)
+BROADCAST = dict(fft_size=82944, num_data_subc=48000, num_pilot_subc=600,
+                 cp_size=9216, num_symb=2, pr_sin_len=4096, mod_type=6)
+B_BROADCAST = 16
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -1081,6 +1097,7 @@ def run_dft_checks(dev):
     rx_lte = randc(B, nsym * lte.ofdm_len).reshape(B, nsym, lte.ofdm_len)
     rx_odd = randc(B, nsym * odd.ofdm_len).reshape(B, nsym, odd.ofdm_len)
     t16, t32 = ModemConfig(**DVBT2_16K), ModemConfig(**DVBT2_32K)
+    bc = ModemConfig(**BROADCAST)
     cases = [
         ("RX view", rx[..., cfg.cp_size:], -1, 1.0),
         ("TX", randc(B, cfg.num_symb, cfg.fft_size), +1, 1.0),
@@ -1107,6 +1124,14 @@ def run_dft_checks(dev):
         ("RX view 32k", symbol_view(t32, B_32K, dev, g), -1, 1.0),
         ("n=12288 scaled", randc(21, 12288), +1, 12288 ** -0.5),
         ("n=65536", randc(9, 65536), -1, 1.0),
+        ("TX 82944", randc(B_BROADCAST, bc.num_symb, bc.fft_size), +1, 1.0),
+        ("RX view 82944", symbol_view(bc, B_BROADCAST, dev, g), -1, 1.0),
+        ("n=19683", randc(37, 19683), -1, 1.0),
+        ("n=39366 scaled", randc(11, 39366), +1, 39366 ** -0.5),
+        ("n=15625", randc(21, 15625), +1, 1.0),
+        ("n=16807", randc(21, 16807), -1, 1.0),
+        ("n=98304", randc(5, 98304), +1, 1.0),
+        ("n=131072", randc(5, 131072), -1, 1.0),
     ]
     worst = {"dft": 0.0, "mixed": 0.0, "cluster": 0.0, "bluestein": 0.0}
     for label, x, sign, scale in cases:
@@ -1401,22 +1426,26 @@ def route_timing(dev, g):
     flagship step's TX [2048, 1536] (sign +1) and RX view [2304, 1536] (row
     stride 1644), [2304, 509] (a prime: Bluestein, m = 1024), the 510
     step's TX [2048, 510] (sign +1) and RX view [2304, 510] (row stride 638,
-    Bluestein, m = 1024), and the DVB-T2 steps' TX [128, 16384] / [64,
-    32768] (sign +1) and RX views [192, 16384] / [96, 32768] (row strides
-    18432 / 36864; the cluster route).  The dense route is not run at 32K
-    (its planes would take 2 x 8.6 GB), and its 16K planes (4.3 GB) are
-    dropped right after; the cluster route's other splits
-    (``cluster_split_fft``) run beside it, cold only.  The sums are over
-    the shapes the path's steps give the route: the 1536 step's for mixed,
-    the 510 step's for Bluestein, both DVB-T2 steps' for cluster (also per
+    Bluestein, m = 1024), the DVB-T2 steps' TX [128, 16384] / [64, 32768]
+    (sign +1) and RX views [192, 16384] / [96, 32768] (row strides 18432 /
+    36864; the cluster route), the 0.37 kHz broadcast step's TX [32, 82944]
+    and RX view [48, 82944] (row stride 92160; 12-block clusters) and
+    [64, 19683] (3^9: 9-block clusters).  The dense route runs at 16K and
+    19683 only (at 32K its planes would take 2 x 8.6 GB, at 82944 the host
+    matrix alone 110 GB), and its planes (4.3 and 3.1 GB) are dropped right
+    after; the cluster route's other splits (``cluster_split_fft``) run
+    beside it, cold only.  The sums are over the shapes the path's steps
+    give the route: the 1536 step's for mixed, the 510 step's for
+    Bluestein, the DVB-T2 and broadcast steps' for cluster (also per
     step).  The bound is a DFT's, as above, whatever the algorithm.  Returns {route: {"kernel", "plain", "library",
     "bound" (ms, cold, summed over the route's step shapes), "bound_by",
     "steps": {step: those sums}, "shapes": {label: medians}}}."""
     from c_ofdm_tpu_torch import ModemConfig
-    from c_ofdm_tpu_torch.ops import dft
+    from c_ofdm_tpu_torch.ops import dft, fft
     lte = ModemConfig(**LTE1536)
     odd = ModemConfig(**NONSMOOTH)
     t16, t32 = ModemConfig(**DVBT2_16K), ModemConfig(**DVBT2_32K)
+    bc = ModemConfig(**BROADCAST)
 
     def rand(*shape):
         return lambda: torch.randn(*shape, dtype=torch.complex64, device=dev,
@@ -1436,7 +1465,18 @@ def route_timing(dev, g):
                "16k"),
               ("TX 32k", rand(B_32K, t32.num_symb, t32.fft_size), +1, "32k"),
               ("RX view 32k", lambda: symbol_view(t32, B_32K, dev, g), -1,
-               "32k"))
+               "32k"),
+              ("TX 82944", rand(B_BROADCAST, bc.num_symb, bc.fft_size), +1,
+               "82944"),
+              ("RX view 82944", lambda: symbol_view(bc, B_BROADCAST, dev, g),
+               -1, "82944"),
+              ("n=19683", rand(64, 19683), -1, None))
+    # dense / kernel each shape's route should reach (the 19683 case: its
+    # before column), and each cluster step's share of its bound and ratio
+    # to torch.fft
+    dense_target = {"mixed": 10, "cluster": 100, "n=19683": 50}
+    step_targets = {"16k": (0.35, 2.0), "32k": (0.35, 2.0),
+                    "82944": (0.30, 1.5)}
     out = {}
     for label, make, sign, step in shapes:
         xs = [make() for _ in range(COLD_SETS)]
@@ -1464,8 +1504,11 @@ def route_timing(dev, g):
             fns = {"kernel": lambda i: dft.dft(xs[i % sets], sign),
                    "plain": lambda i: plain(xs[i % sets], sign),
                    "library": lib}
-            if n <= 16384:
+            if n <= 16384 or n == 19683:
                 fns["dense"] = lambda i: on_route("dense", xs[i % sets], sign)
+            if n == 500:   # the dense route's own plain version
+                fns["dense plain"] = lambda i: dft.dft_ref(xs[i % sets],
+                                                           sign)
             for c in splits if cond == "cold" else ():
                 fns[f"split c={c}"] = (lambda c: lambda i: cluster_split_fft(
                     xs[i % sets], sign, c))(c)
@@ -1475,7 +1518,8 @@ def route_timing(dev, g):
             for order in (tuple(fns), tuple(reversed(fns))):
                 for k in order:
                     devt[k].append(graph_ms(fns[k], 6 if k in ("plain",
-                                                                "dense")
+                                                                "dense",
+                                                                "dense plain")
                                             else 24))
             med = {k: statistics.median(v) for k, v in devt.items()}
             rec["shapes"][f"{label} {cond}"] = med
@@ -1492,14 +1536,14 @@ def route_timing(dev, g):
                 per["bound"] += bound
                 for k in by:
                     rec["limits"][k] += by[k]
-            target = {"mixed": 10, "cluster": 100}.get(route, 5)
+            target = dense_target.get(label, dense_target.get(route, 5))
             ratio = med.get("dense", 0.0) / med["kernel"]
             dense = ("" if "dense" not in med else
                      f"dense route {med['dense'] * 1e3:.3f} us (dense / "
                      f"kernel {ratio:.1f}x, target >= {target}x: "
                      f"{'met' if ratio >= target else 'MISSED'}); ")
             other = "".join(f"{k} {med[k] * 1e3:.3f} us; " for k in med
-                            if k.startswith("split"))
+                            if k.startswith("split") or k == "dense plain")
             say("dft-timing", f"K4 {route} route {label} [{m},{n}] sign "
                 f"{sign:+d}, {cond} L2: kernel {med['kernel'] * 1e3:.3f} us, "
                 f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
@@ -1513,8 +1557,13 @@ def route_timing(dev, g):
             # the 16K planes (2 x 2.15 GB) go now; their host matrices stay
             # cached for phase 25's dense before column, which drops them
             dft.dft_planes.cache_clear()
+        if label == "n=19683":
+            # the 19683 planes (3.1 GB) and their host matrix (6.2 GB) go
+            dft.dft_planes.cache_clear()
+            fft._dft_matrix_np.cache_clear()
     fit = {(c, n // c): dft._prepare("cluster", dev.index, c, n // c)
-           for n in (t16.fft_size, t32.fft_size) for c in dft.CLUSTER_SPLITS
+           for n in (t16.fft_size, t32.fft_size, bc.fft_size, 19683)
+           for c in dft.CLUSTER_SPLITS
            if n % c == 0 and dft._fits("mixed", n // c)}
     say("dft-timing", f"K4 cluster route: clusters of (c blocks, L points "
         f"a block) that fit on the card at once "
@@ -1532,10 +1581,11 @@ def route_timing(dev, g):
             dense = ("" if per["dense"] is None else
                      f", dense route {per['dense']:.5f} ms "
                      f"({per['dense'] / per['kernel']:.1f}x the kernel)")
-            goals = ("" if route != "cluster" else
-                     f" (targets: >= 35% of the bound "
-                     f"{'met' if share >= 0.35 else 'MISSED'}, <= 2x "
-                     f"torch.fft {'met' if ratio <= 2 else 'MISSED'})")
+            lo, hi = step_targets.get(step, (None, None))
+            goals = ("" if lo is None else
+                     f" (targets: >= {lo:.0%} of the bound "
+                     f"{'met' if share >= lo else 'MISSED'}, <= {hi:g}x "
+                     f"torch.fft {'met' if ratio <= hi else 'MISSED'})")
             say("dft-timing", f"K4 {route} route, the {step} step (TX + RX), "
                 f"cold L2: kernel {per['kernel']:.5f} ms ({share:.1%} of the "
                 f"bound {per['bound']:.5f} ms), torch.fft "
@@ -3197,6 +3247,8 @@ def run_compiled(dev, card, stream_data, sharded_cells):
              {"cluster": 2}, "dense", 1e-5),
             ("flagship pallas 32k", ModemConfig(**DVBT2_32K), "pallas", B_32K,
              {"cluster": 2}, None, 2e-6),
+            ("flagship pallas 82944", ModemConfig(**BROADCAST), "pallas",
+             B_BROADCAST, {"cluster": 2}, None, 2e-6),
             ("wideband ct", ModemConfig(**WIDEBAND), "ct", B_WIDE, None,
              None, None)):
         timed(lambda: flagship_cell(dev, tag, cfg, backend, batch, rng,

@@ -1,7 +1,7 @@
 """The port on the card: K1, K2, K3 and K4 (each of its five routes)
 against their plain versions, the flagship step (matmul and pallas
-backends, and pallas at a 1536-point geometry and at DVB-T2's 16K and 32K
-FFT sizes), one gated streaming buffer,
+backends, and pallas at a 1536-point geometry, at DVB-T2's 16K and 32K
+FFT sizes and at LTE 5G broadcast's 82944), one gated streaming buffer,
 the MAC codec and channel simulator against their CPU runs, and the
 captured calls (CUDA-graph replays) against their eager runs, the sharded
 receiver and the channel-sharded stream among them.
@@ -436,7 +436,8 @@ def test_dft_launch_runs_a_named_route(dev):
     takes n, and counts it: the dense route at n = 500, 509 and 1536, the
     mixed kernel at a power of two, all equal to the route dft picks within
     1e-6·max|Y|; a route that does not take n raises ValueError (the
-    cluster route below 8193, above 65536 and at an odd n among them)."""
+    cluster route below 8193, above 131072 and at a 7-smooth n among them
+    with no split c·L, c <= 16, L <= 8192)."""
     g = torch.Generator(device=dev).manual_seed(12)
     for n, routes in ((500, ("dense",)), (509, ("dense",)),
                       (1536, ("dense",)), (512, ("mixed", "dense"))):
@@ -455,7 +456,7 @@ def test_dft_launch_runs_a_named_route(dev):
                     <= tol * float(ref.abs().max())), (n, route)
     for n, routes in ((509, ("radix", "mixed", "cluster")),
                       (512, ("bluestein", "cluster")), (8192, ("cluster",)),
-                      (19683, ("cluster", "mixed")),
+                      (117649, ("cluster", "mixed")),
                       (65537, ("cluster", "bluestein"))):
         x = torch.zeros((4, n), dtype=torch.complex64, device=dev)
         for route in routes:
@@ -475,13 +476,31 @@ _CLUSTER_CASES = {
     "rx_view_32k": ("view", 32768, -1, 1.0),
     "n65536": (9, 65536, -1, 1.0),
     "n65536_scaled": (5, 65536, +1, 1.0 / 256),
+    "tx_82944": (32, 82944, +1, 1.0),
+    "rx_view_82944": ("view", 82944, -1, 1.0),
+    "n19683": (37, 19683, -1, 1.0),
+    "n39366_scaled": (11, 39366, +1, 39366 ** -0.5),
+    "n131072": (5, 131072, -1, 1.0),
 }
+# each CP-stripped RX view's (cp, frames): DVB-T2's 1/8 guard interval at
+# B = 64 / 32, LTE 5G broadcast's 9216 samples at B = 16
+_VIEWS = {16384: (2048, 64), 32768: (4096, 32), 82944: (9216, 16)}
+# an n for each instance of the cluster kernel (c blocks a cluster, 8 or
+# 16 points a thread: blocks of up to 4096 points, or more) that
+# dft._cluster_split picks
+_INSTANCES = {(3, 8): 12288, (4, 8): 16384, (5, 8): 15625, (5, 16): 30625,
+              (6, 8): 13122, (6, 16): 39366, (7, 8): 16807, (7, 16): 42875,
+              (8, 8): 32768, (8, 16): 52488, (9, 8): 19683, (9, 16): 59049,
+              (10, 8): 31250, (10, 16): 61250, (12, 8): 28812,
+              (12, 16): 82944, (14, 8): 33614, (14, 16): 67228,
+              (15, 8): 36015, (15, 16): 65625, (16, 8): 65536,
+              (16, 16): 131072}
 
 
 def _cluster_input(case, g, dev):
     rows, n, sign, scale = _CLUSTER_CASES[case]
-    if rows == "view":   # rows of stride n + n/8, read in place
-        cp, b = n // 8, {16384: 64, 32768: 32}[n]
+    if rows == "view":   # rows of stride n + cp, read in place
+        cp, b = _VIEWS[n]
         x = torch.randn(b, 3 * (n + cp), dtype=torch.complex64, device=dev,
                         generator=g).reshape(b, 3, n + cp)[..., cp:]
     else:
@@ -495,9 +514,10 @@ def test_dft_cluster_kernel_matches_plain_versions(dev, case):
     """The cluster route (one row per thread-block cluster, distributed
     shared memory) against its own plain version dft_cluster_ref (the same
     steps and tables, within 1e-6·max|Y|) and the float64 DFT (within
-    2e-6·max|Y|), at the 16K and 32K steps' shapes (the RX input the strided
-    symbol view) and at 12288 and 65536, both signs; one launch on the
-    cluster route's counter, and no n x n planes built."""
+    2e-6·max|Y|), at the 16K, 32K and 82944 steps' shapes (the RX input
+    the strided symbol view) and at 12288, 19683, 39366, 65536 and 131072,
+    both signs; one launch on the cluster route's counter, and no n x n
+    planes built."""
     x, sign, scale = _cluster_input(case, torch.Generator(
         device=dev).manual_seed(13), dev)
     assert dft._route(x.shape[-1]) == "cluster"
@@ -513,6 +533,27 @@ def test_dft_cluster_kernel_matches_plain_versions(dev, case):
     ymax = float(want.abs().max())
     assert float((got.to(torch.complex128) - want).abs().max()) <= 2e-6 * ymax
     own = dft.dft_cluster_ref(x, sign, scale)
+    assert float((got - own).abs().max()) <= 1e-6 * ymax
+
+
+@pytest.mark.parametrize("c,points", sorted(_INSTANCES))
+def test_dft_cluster_instances_match_plain_version(dev, c, points):
+    """Each instance of the cluster kernel that the split rule reaches (c
+    from 3 to 16 blocks a cluster, odd and composite, non-portable above 8;
+    8 points a thread in blocks of up to 4096 points, else 16) on 3 rows
+    against dft_cluster_ref within 1e-6·max|Y| and the float64 DFT within
+    2e-6·max|Y|."""
+    n = _INSTANCES[c, points]
+    assert dft._cluster_split(n)[0] == c
+    assert (8 if n // c <= 4096 else 16) == points
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(3, n, dtype=torch.complex64, device=dev, generator=g)
+    got = dft.dft(x, +1 if c % 2 else -1)
+    want = _dft64(x, +1 if c % 2 else -1, 1.0)
+    torch.cuda.synchronize()
+    ymax = float(want.abs().max())
+    assert float((got.to(torch.complex128) - want).abs().max()) <= 2e-6 * ymax
+    own = dft.dft_cluster_ref(x, +1 if c % 2 else -1)
     assert float((got - own).abs().max()) <= 1e-6 * ymax
 
 
@@ -551,6 +592,33 @@ def test_pallas_flagship_step_dvbt2_on_card(dev, name):
                       num_pilot_subc=n // 256, cp_size=n // 8, num_symb=2,
                       pr_sin_len=n // 16, mod_type=6)
     payload = np.random.default_rng(n).integers(
+        0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    before = _route_counts()
+    k1 = extract.extract_windows.launches
+    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+    torch.cuda.synchronize()
+    assert extract.extract_windows.launches == k1 + 1
+    assert _route_counts() == {k: v + 2 * (k in ("launches", "cluster"))
+                               for k, v in before.items()}
+    assert bool(s.found.all()) and not bool(s.frame_start.any())
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
+                                       fft_backend="pallas"))
+    res_c, _ = cpu(torch.from_numpy(payload))
+    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
+
+
+def test_pallas_flagship_step_broadcast_on_card(dev):
+    """B = 2 at LTE 5G broadcast's 0.37 kHz numerology (82944-point FFT,
+    CP 9216, 48600 occupied subcarriers) under fft_backend="pallas": K4
+    launched twice, both on the cluster route (12-block clusters), K1
+    once, payloads exact and equal to the CPU run."""
+    cfg = ModemConfig(fft_size=82944, num_data_subc=48000,
+                      num_pilot_subc=600, cp_size=9216, num_symb=2,
+                      pr_sin_len=4096, mod_type=6)
+    payload = np.random.default_rng(82944).integers(
         0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
     spec = make_frame_spec(cfg, torch.complex64, device=dev,
                            fft_backend="pallas")

@@ -130,12 +130,14 @@ def test_dft_leading_dims_and_wrapper_on_cpu():
     (448, "mixed"), (6144, "mixed"), (509, "bluestein"), (4093, "bluestein"),
     (8191, "dense"), (0, "dense"), (12288, "cluster"), (13122, "cluster"),
     (24576, "cluster"), (32768, "cluster"), (65536, "cluster"),
-    (19683, "dense"), (39366, "dense"), (65537, "dense"), (131072, "dense")])
+    (19683, "cluster"), (39366, "cluster"), (65537, "dense"),
+    (131072, "cluster"), (82944, "cluster"), (117649, "dense"),
+    (262144, "dense")])
 def test_dft_route_by_size(n, route):
     """The kernel is chosen by n alone: the radix FFT for every power of two
     from 16 to 8192, the mixed-radix FFT for every other 7-smooth n from 16
-    to 8192, the cluster FFT for every 7-smooth n from 8193 to 65536 with a
-    split n = c·L (c in 2, 4, 8; L <= 8192), Bluestein for every other n
+    to 8192, the cluster FFT for every 7-smooth n from 8193 to 131072 with
+    a split n = c·L (c from 3 to 16; L <= 8192), Bluestein for every other n
     from 16 to 4096, the dense product for what is left (n = 0 too: an empty
     launch); each plain pass version refuses the sizes its kernel does not
     take (the mixed one takes the radix route's too), and so does a launch
@@ -404,6 +406,46 @@ def test_odd_radix_constants_match_the_kernel_source():
         want = np.exp(2j * np.pi * int(q) / int(radix))
         assert np.float32(c) == np.float32(want.real)
         assert np.float32(sn) == np.float32(want.imag)
+
+
+def test_composite_butterfly_constants_match_the_kernel_source():
+    """csrc/dft.cu's factorisations of the composite butterflies (``Split``)
+    are _BUTTERFLY_FACTORS, and its rotation constants (``turn``, with
+    ``root`` for R = 3, 5, 7) are the float32 roundings of cos and
+    sin(2πq/R) in float64 (_root) for every q/R in lowest terms that those
+    factorisations rotate by, other than 1/2, 1/4 and 3/4 (exact)."""
+    import math
+    import re
+    from pathlib import Path
+    src = (Path(tdft.__file__).resolve().parent.parent / "csrc"
+           / "dft.cu").read_text()
+    split = re.findall(r"template <> struct Split<(\d+)> \{ static constexpr "
+                       r"int A = (\d+), B = (\d+); \};", src)
+    assert {int(c): (int(a), int(b)) for c, a, b in split} == \
+        tdft._BUTTERFLY_FACTORS
+    table = {(int(r), int(q)): (np.float32(c), np.float32(sn))
+             for r, q, c, sn in re.findall(
+                 r"case (\d+) \* 16 \+ (\d+): return make_float2\("
+                 r"([-0-9.e]+)f, ([-0-9.e]+)f\);", src)}
+    for r, q, c, sn in re.findall(r"case (\d) \* 8 \+ (\d): return "
+                                  r"make_float2\(([-0-9.e]+)f, ([-0-9.e]+)f"
+                                  r"\);", src):
+        table[int(r), int(q)] = (np.float32(c), np.float32(sn))
+    needed = set()
+    for c, (a, b) in tdft._BUTTERFLY_FACTORS.items():
+        assert a * b == c
+        for m2 in range(b):
+            for k1 in range(a):
+                j = m2 * k1 % c
+                g = math.gcd(j, c)
+                if j and c // g not in (2, 4):
+                    needed.add((c // g, j // g))
+    assert needed <= set(table)
+    for (r, q), (c, sn) in table.items():
+        assert math.gcd(r, q) == 1
+        want = np.exp(2j * np.pi * q / r)
+        assert (c, sn) == (np.float32(want.real), np.float32(want.imag))
+        assert (c, sn) == tuple(np.float32(v) for v in tdft._root(r, q))
 
 
 def _mixed_accesses(n):

@@ -5,9 +5,10 @@
 ``dft`` runs on CPU tensors at these sizes) is held against the float64 DFT
 and, at the powers of two, against the JAX package's own large-n DFT
 ``c_ofdm_tpu.ops.fft.ct_dft``.  ``dft_pallas`` (the Pallas kernel in
-interpret mode) is not run here: at n = 12288-65536 its twiddle planes
-alone are 1.2-34 GB, and the complex128 matrix it builds them from on the
-host twice that.
+interpret mode) is not run here: at n = 12288-131072 its twiddle planes
+alone are 1.2-137 GB, and the complex128 matrix it builds them from on
+the host twice that.  The cluster kernel's c-point butterflies (c = 3 to
+16, odd and composite) are held against the float64 DFT one by one.
 
 Geometries: the repo's wideband layout (half the bins carry data, 1/128 of
 them pilots, 2 symbols, QAM64) at DVB-T2's 16K and 32K FFT sizes with its
@@ -67,7 +68,8 @@ def _dft64(x, sign, scale):
 
 @pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("sign", [-1, 1])
-@pytest.mark.parametrize("n", [12288, 16384, 32768, 65536])
+@pytest.mark.parametrize("n", [12288, 16384, 32768, 65536, 19683, 39366,
+                               82944, 131072])
 def test_dft_cluster_ref_matches_float64_and_ct_dft(n, sign, scaled):
     """dft_cluster_ref within 2e-6·max|Y| of the float64 DFT, and at the
     powers of two of the JAX package's ct_dft (two-stage Cooley-Tukey)."""
@@ -85,22 +87,47 @@ def test_dft_cluster_ref_matches_float64_and_ct_dft(n, sign, scaled):
 
 
 def test_cluster_split_and_twiddles():
-    """The split n = c·L takes the least c with L <= 4096, else the least
-    with L <= 8192; the table between the steps is exp(sign·2πi·r·k1/n)
-    (r = 1 .. c - 1, k1 < L) computed in float64 and rounded once."""
+    """The split n = c·L takes the least c from 3 to 16 with L <= 4096,
+    else the least with L <= 8192; the table between the steps is
+    exp(sign·2πi·r·k1/n) (r = 1 .. c - 1, k1 < L) computed in float64 and
+    rounded once."""
     assert dft._cluster_split(16384) == (4, 4096)
     assert dft._cluster_split(32768) == (8, 4096)
-    assert dft._cluster_split(65536) == (8, 8192)
-    assert dft._cluster_split(12288) == (4, 3072)
-    assert dft._cluster_split(13122) == (2, 6561)
-    for n in (8192, 19683, 39366, 65537, 131072):
+    assert dft._cluster_split(65536) == (16, 4096)
+    assert dft._cluster_split(12288) == (3, 4096)
+    assert dft._cluster_split(13122) == (6, 2187)
+    assert dft._cluster_split(19683) == (9, 2187)
+    assert dft._cluster_split(39366) == (6, 6561)
+    assert dft._cluster_split(82944) == (12, 6912)
+    assert dft._cluster_split(98304) == (12, 8192)
+    assert dft._cluster_split(131072) == (16, 8192)
+    assert dft._cluster_split(15625) == (5, 3125)
+    assert dft._cluster_split(16807) == (7, 2401)
+    for n in (8192, 65537, 117649, 262144):
         assert dft._cluster_split(n) is None
-    n, c, sign = 32768, 8, 1
-    tw = dft.cluster_twiddles(n, c, sign, torch.device("cpu")).numpy()
-    r = np.arange(1, c)[:, None]
-    k1 = np.arange(n // c)
-    want = np.exp(sign * 2j * np.pi * r * k1 / n).astype(np.complex64)
-    np.testing.assert_array_equal(tw, want.reshape(-1))
+    for n, c, sign in ((32768, 8, 1), (82944, 12, -1), (19683, 9, 1)):
+        tw = dft.cluster_twiddles(n, c, sign, torch.device("cpu")).numpy()
+        r = np.arange(1, c)[:, None]
+        k1 = np.arange(n // c)
+        want = np.exp(sign * 2j * np.pi * r * k1 / n).astype(np.complex64)
+        np.testing.assert_array_equal(tw, want.reshape(-1))
+
+
+@pytest.mark.parametrize("c", dft.CLUSTER_SPLITS)
+def test_cluster_butterfly_matches_float64(c):
+    """The cluster kernel's c-point butterfly in plain PyTorch (_dft_small:
+    the radix-2/4/8 and 3/5/7 butterflies, composite c as two factors with
+    the rotations between them) within 2e-7·max|Y| of the float64 DFT,
+    both signs."""
+    rng = np.random.default_rng(c)
+    u = _crandn(rng, (c, 64))
+    w = np.exp(2j * np.pi * np.outer(np.arange(c), np.arange(c)) / c)
+    for sign in (-1, 1):
+        got = torch.stack(dft._dft_small(list(torch.from_numpy(u)), sign))
+        want = (w if sign > 0 else w.conj()) @ u.astype(np.complex128)
+        assert got.dtype == torch.complex64
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=2e-7 * np.abs(want).max())
 
 
 def test_cluster_sizes_on_cpu_run_the_plain_version():
@@ -118,7 +145,7 @@ def test_cluster_sizes_on_cpu_run_the_plain_version():
     assert torch.equal(dft.dft(x, +1, 0.25), dft.dft_cluster_ref(x, +1, 0.25))
     assert dft.dft_planes.cache_info() == planes
     assert (dft.dft.launches, dft.dft.cluster_launches) == counts
-    for n in (8192, 19683, 65537):
+    for n in (8192, 117649, 65537):
         with pytest.raises(ValueError, match="does not take"):
             dft._launch(torch.zeros((1, n), dtype=torch.complex64), -1, 1.0,
                         "cluster")
