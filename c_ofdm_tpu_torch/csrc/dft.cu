@@ -28,6 +28,15 @@
 //   TX  [32, 82944], sign +1: 42.5 MB -> 12.7 us
 //   RX  [48, 82944], sign -1: 63.7 MB -> 19.0 us
 //   (542 MFLOP a step -> 8.1 us)
+// and at the same numerology sampled at 61.44 Msps (a 165888-point FFT,
+// CP 18432; B = 8 frames):
+//   TX  [16, 165888], sign +1: 42.5 MB -> 12.7 us
+//   RX  [24, 165888], sign -1: 63.7 MB -> 19.0 us
+//   (575 MFLOP a step -> 8.6 us); the four-step route moves the rows'
+//   bytes twice (x to the workspace, the workspace to y), so half the
+//   bound is its ceiling
+// and, for the chirp route, which no path runs, at [2304, 4099]: 151.1 MB
+// -> 45.1 us
 // An FFT does 5·log2(n) / 16 = 2.8 FLOP per byte moved at n = 512 (3.3 at
 // 1536), far below the card's float32 ridge of 67e12 / 3.35e12 = 20
 // FLOP/B, so the bytes bound it and the FLOPs hide under the memory time.
@@ -37,7 +46,7 @@
 // Cooley-Tukey GEMM does O(n) or O(sqrt n) FLOPs per point, not O(log n))
 // to a kernel whose arithmetic already costs less than its memory traffic.
 //
-// Five routes, chosen by n alone (ops/dft.py::_route):
+// Seven routes, chosen by n alone (ops/dft.py::_route):
 //
 // * radix, n a power of two from 16 to 8192 (the stock and wideband
 //   geometries): a Stockham (self-sorting) FFT with each row in shared
@@ -123,6 +132,26 @@
 //   shared memory limit (and, for 16-point blocks, the largest shared
 //   memory carveout) and checks with cudaOccupancyMaxActiveClusters that a
 //   cluster fits.  Plain version: ops/dft.py::dft_cluster_ref.
+// * fourstep, every other 7-smooth n = N1·N2 with both factors from 16 to
+//   8192 (7^6 = 117649, 165888 = 2^11·3^4, every 7-smooth n with such a
+//   split from 131073 to 8192²): two launches through a workspace z [rows,
+//   n] that the wrapper allocates.  With j = N2·j1 + j2 and k = k1 +
+//   N1·k2, launch 1 (fourstep_cols_reg_kernel<A, B> for N1 = A·B <= 64,
+//   one column a thread in registers; else fourstep_cols_kernel, 16-64
+//   columns a block through the mixed passes in shared memory) reads the
+//   columns x[N2·j1 + j2] with a warp on consecutive columns, takes the
+//   N1-point DFTs, multiplies X1[k1, j2] by exp(sign·2πi·j2·k1/n) (a
+//   float64 table rounded once, ops/dft.py::fourstep_twiddles) and writes
+//   z[k1·N2 + j2]; launch 2 (fourstep_rows_kernel) runs the mixed passes
+//   along z's contiguous rows, four rows k1 a block, and writes
+//   y[k1 + N1·k2] times scale in runs of 4 points (32 bytes, whole L2
+//   sectors) at stride N1.  The split (ops/dft.py::_fourstep_split) takes
+//   the largest N1 of the register kernel: 165888 = 64 x 2592 was the
+//   fastest of the splits and row groups timed on the H100 (chip_smoke.py
+//   phase 18 times the others).  What bounds the route: the bytes twice
+//   over, and launch 2's mixed passes (instruction- and latency-bound at
+//   one 648-thread block an SM).  Plain version:
+//   ops/dft.py::dft_fourstep_ref.
 // * bluestein, every other n from 16 to 4096 (primes such as 509): the
 //   chirp-z transform in one kernel, bluestein_kernel<log2 m> below, one
 //   row per block of m / 8 threads, m the power of two >= 2n - 1 (and
@@ -137,18 +166,29 @@
 //   y move once; 2·(ceil(log2 m / 3) - 1) exchanges in m·8 bytes of
 //   shared memory (64 KB at m = 8192).  Plain version:
 //   ops/dft.py::dft_bluestein_ref.
-// * dense, what is left (n < 16, non-7-smooth n above 4096, and 7-smooth n
-//   above 8192 with no such split: 7^6 = 117649, n above 131072): the
-//   complex GEMM
-//   dft_kernel below against W as two float32 planes [n, n] (times scale,
-//   built once per (n, sign, scale) by the wrapper).  Its own floor is
-//   8·M·n² FLOPs on the float32 CUDA cores, so it is no route for the sizes
-//   the other kernels take.  A block computes a 64 x 64 tile of y with 256
-//   threads, each holding 4 x 4 complex accumulators; the contraction runs
-//   in chunks of 16 staged in shared memory, each chunk summed apart and
-//   then added to the accumulators (about the plain version's 4-GEMM
-//   accuracy, at 127 registers).  Ragged rows, columns and chunks are
-//   zero-filled on load and masked on store.
+// * chirp, every other n up to 2^25 (non-7-smooth n above 4096, such as
+//   the prime 4099): Bluestein's algorithm over the FFT routes, its steps
+//   as launches on the caller's stream (ops/dft.py::_chirp): x·c
+//   zero-padded to m points (chirp_pre_kernel), the forward m-point FFT on
+//   m's route kernel (m the least 7-smooth length >= 2n - 1 that the
+//   radix, mixed, cluster or four-step route takes: 4099 -> 8232 on the
+//   cluster route, 131071 -> 262144 on the four-step one), the product
+//   with the filter's spectrum (fused into the four-step's launch-2 stores
+//   where m is on that route, else chirp_product_kernel), the backward FFT,
+//   and the first n points times c and scale/m (chirp_post_kernel).  The
+//   chirp is exp(sign·πi·(k² mod 2n)/n) with k² mod 2n exact in int64 on
+//   the host.  Plain version: ops/dft.py::dft_chirp_ref.
+// * dense, n < 16 only, where a DFT of at most 15 points as a matrix is
+//   the right algorithm: the complex GEMM dft_kernel below against W as two
+//   float32 planes [n, n] (times scale, built once per (n, sign, scale) by
+//   the wrapper).  Its own floor is 8·M·n² FLOPs on the float32 CUDA cores,
+//   so it is no route for the sizes the other kernels take.  A block
+//   computes a 64 x 64 tile of y with 256 threads, each holding 4 x 4
+//   complex accumulators; the contraction runs in chunks of 16 staged in
+//   shared memory, each chunk summed apart and then added to the
+//   accumulators (about the plain version's 4-GEMM accuracy, at 127
+//   registers).  Ragged rows, columns and chunks are zero-filled on load
+//   and masked on store.
 //
 // Interface: plain C, loaded with ctypes (c_ofdm_tpu_torch/ops/_kernels.py).
 // Each launch goes on the caller's stream, does not synchronise and
@@ -665,6 +705,7 @@ struct MixedPlan {
   int stride;    // shared-memory points per row: n rounded up to 16
   int passes;
   uint64_t plan;
+  int xs;        // the first pass's input stride where XS is 0 (1 else)
 };
 
 // The row's shared-memory slot of point i: the radix route's swizzle, a
@@ -674,8 +715,8 @@ __device__ __forceinline__ int mswz(int i) { return i ^ ((i >> 3) & 15); }
 // One pass (radix R, sub-transforms of ns points done) of one row: the
 // thread's butterflies j = t + b·T, b < ceil(PT / R) (PT points a thread,
 // T = ceil(n / PT) threads a row), the last ones masked,
-// each read (from x in the first pass, point i at xr[i·XS], else from the
-// row's buffer ``in``),
+// each read (from x in the first pass, point i at xr[i·XS], or at
+// xr[i·p.xs] where XS is 0, else from the row's buffer ``in``),
 // twiddled, transformed in registers and written to expand(j, ns, R) +
 // r·ns (in the row's other buffer ``out``, or in y times scale in the last
 // pass).  ``tw`` is this pass's block of the twiddle table, r-major:
@@ -698,9 +739,16 @@ __device__ __forceinline__ void mixed_pass(
     const int j = t + b * p.t;
     if (live && j < nb) {
       float2 u[R];
-      if constexpr (FIRST) {
+      if constexpr (FIRST && XS > 0) {
 #pragma unroll
         for (int r = 0; r < R; ++r) u[r] = __ldg(xr + (j + r * nb) * XS);
+      } else if constexpr (FIRST) {
+        // a runtime stride (the four-step's columns): the column's first
+        // point and the step between its points
+        const float2* col = xr + j * p.xs;
+        const int step = nb * p.xs;
+#pragma unroll
+        for (int r = 0; r < R; ++r) u[r] = __ldg(col + r * step);
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) u[r] = in[mswz(j + r * nb)];
@@ -819,6 +867,7 @@ int make_plan(long long n, unsigned long long plan, int passes, bool one_row,
   p->stride = (p->n + 15) / 16 * 16;
   p->passes = passes;
   p->plan = plan;
+  p->xs = 1;
   return 0;
 }
 
@@ -1027,6 +1076,290 @@ int prepare_bluestein() {
   return static_cast<int>(cudaFuncSetAttribute(
       bluestein_kernel<LOG2M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmem));
+}
+
+// ------------------------------------------------------------- fourstep
+
+// Points a thread of a four-step launch takes for `rows` rows (or columns)
+// of n points a block: 8 while the block stays within 1024 threads, else 16
+// (ops/dft.py::_fourstep_points).
+int fourstep_points(long long n, int rows) {
+  return rows * ((n + 7) / 8) <= 1024 ? 8 : 16;
+}
+
+// Shared memory of a four-step block of `rows` rows of plan p: each row's
+// two buffers and one float2 of padding, so that the same point of 16
+// neighbouring rows falls in 16 distinct bank pairs.
+size_t fourstep_smem(const MixedPlan& p, int rows) {
+  return static_cast<size_t>(rows) * (2 * p.stride + 1) * sizeof(float2);
+}
+
+// Launch 1 of the four-step route for n = N1·N2, j = N2·j1 + j2 and
+// k = k1 + N1·k2 (p the plan of N1, p.xs = N2): block b holds `cols`
+// adjacent columns j2 of row b / ceil(N2 / cols), thread (t, lr) =
+// (threadIdx.x / cols, threadIdx.x mod cols) the column j2 = first + lr, so
+// a warp's loads of one point read consecutive columns (32 x 8 bytes where
+// cols >= 32, whole 128-byte lines where cols >= 16).  The mixed passes run
+// the N1-point DFT down each column in the column's two shared-memory
+// buffers (its first pass reads x[row·ldx + N2·j1 + j2] in place); then
+// X1[k1, j2] times ftw[(k1 - 1)·N2 + j2] = exp(s·2πi·j2·k1/n) (k1 > 0) is
+// written to the workspace z[row, k1·N2 + j2], a warp's stores again on
+// consecutive columns.  Ragged columns past N2 are masked.
+template <int PT>
+__global__ void __launch_bounds__(1024)
+fourstep_cols_kernel(const float2* __restrict__ x, int64_t ldx,
+                     const float2* __restrict__ tw,
+                     const float2* __restrict__ ftw, float2* __restrict__ z,
+                     MixedPlan p, int n2, int cols, float s) {
+  extern __shared__ __align__(16) float2 mbuf[];
+  const int lr = threadIdx.x % cols;
+  const int t = threadIdx.x / cols;
+  const int per_row = (n2 + cols - 1) / cols;
+  const int64_t row = blockIdx.x / per_row;
+  const int j2 = static_cast<int>(blockIdx.x % per_row) * cols + lr;
+  const bool live = j2 < n2;
+  const int n1 = p.n;
+  float2* rb = mbuf + lr * (2 * p.stride + 1);
+  mixed_passes<0, PT, true>(p, live, t, x + row * ldx + (live ? j2 : 0), rb,
+                            tw, nullptr, s, 1.f);
+  if (!live) return;
+  const float2* fin = rb + ((p.passes - 1) & 1) * p.stride;
+  float2* zr = z + row * n1 * static_cast<int64_t>(n2) + j2;
+  for (int k1 = t; k1 < n1; k1 += p.t) {
+    float2 v = fin[mswz(k1)];
+    if (k1 > 0) v = cmul(v, __ldg(ftw + (k1 - 1) * n2 + j2));
+    zr[k1 * n2] = v;
+  }
+}
+
+// Launch 1 for a column length N1 = A·B with A, B in {2, 3, 4, 5, 7, 8}
+// and N1 <= 64 (ops/dft.py::_FOURSTEP_REG): one column a thread, a block of
+// 128 neighbouring columns, all N1 points of the column in registers, no
+// shared memory and no barrier.  The thread loads x[row·ldx + N2·j1 + j2]
+// for every j1 at once (a warp's loads of one j1: 32 consecutive columns),
+// then with j1 = B·m1 + m2 and k1 = ka + A·kb: the A-point DFTs over m1 for
+// each m2, output ka rotated by tw[m2·ka] = exp(s·2πi·m2·ka/N1) (the
+// N1-point table, float64 rounded once), the B-point DFTs over m2 for each
+// ka, and X1[k1] times ftw[(k1 - 1)·N2 + j2] (k1 > 0) stored to the
+// workspace z[row, k1·N2 + j2].
+template <int A, int B>
+__global__ void __launch_bounds__(128)
+fourstep_cols_reg_kernel(const float2* __restrict__ x, int64_t ldx,
+                         const float2* __restrict__ tw,
+                         const float2* __restrict__ ftw,
+                         float2* __restrict__ z, int n2, float s) {
+  constexpr int kN = A * B;
+  const int per_row = (n2 + 127) / 128;
+  const int64_t row = blockIdx.x / per_row;
+  const int j2 = static_cast<int>(blockIdx.x % per_row) * 128 + threadIdx.x;
+  if (j2 >= n2) return;
+  const float2* xr = x + row * ldx + j2;
+  float2 u[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) u[j] = __ldg(xr + j * n2);
+#pragma unroll
+  for (int m2 = 0; m2 < B; ++m2) {
+    float2 a[A];
+#pragma unroll
+    for (int m1 = 0; m1 < A; ++m1) a[m1] = u[B * m1 + m2];
+    dft_any<A>(a, s);
+#pragma unroll
+    for (int ka = 0; ka < A; ++ka) {
+      u[B * ka + m2] = m2 * ka == 0 ? a[ka]
+                                    : cmul(a[ka], __ldg(tw + m2 * ka));
+    }
+  }
+#pragma unroll
+  for (int ka = 0; ka < A; ++ka) {
+    float2 b[B];
+#pragma unroll
+    for (int m2 = 0; m2 < B; ++m2) b[m2] = u[B * ka + m2];
+    dft_any<B>(b, s);
+#pragma unroll
+    for (int kb = 0; kb < B; ++kb) u[B * ka + kb] = b[kb];
+  }
+  float2* zr = z + row * kN * static_cast<int64_t>(n2) + j2;
+#pragma unroll
+  for (int kb = 0; kb < B; ++kb) {
+#pragma unroll
+    for (int ka = 0; ka < A; ++ka) {
+      const int k1 = ka + A * kb;
+      float2 v = u[B * ka + kb];
+      if (k1 > 0) v = cmul(v, __ldg(ftw + (k1 - 1) * n2 + j2));
+      zr[k1 * n2] = v;
+    }
+  }
+}
+
+using FourstepReg = void (*)(const float2*, int64_t, const float2*,
+                             const float2*, float2*, int, float);
+
+// The register kernel of N1 (the factors of ops/dft.py::_FOURSTEP_REG);
+// null for an N1 it is not built for.
+FourstepReg reg_kernel(long long n1) {
+  switch (n1) {
+    case 20: return fourstep_cols_reg_kernel<4, 5>;
+    case 21: return fourstep_cols_reg_kernel<3, 7>;
+    case 24: return fourstep_cols_reg_kernel<3, 8>;
+    case 25: return fourstep_cols_reg_kernel<5, 5>;
+    case 28: return fourstep_cols_reg_kernel<4, 7>;
+    case 32: return fourstep_cols_reg_kernel<4, 8>;
+    case 35: return fourstep_cols_reg_kernel<5, 7>;
+    case 40: return fourstep_cols_reg_kernel<5, 8>;
+    case 49: return fourstep_cols_reg_kernel<7, 7>;
+    case 56: return fourstep_cols_reg_kernel<7, 8>;
+    case 64: return fourstep_cols_reg_kernel<8, 8>;
+    default: return nullptr;
+  }
+}
+
+// Launch 2 of the four-step route (p the plan of N2): block b takes G (1,
+// 2 or 4) adjacent rows k1 of the workspace (row b / (N1 / G) of x, k1
+// from (b mod (N1 / G))·G), the N2-point DFT of each along its contiguous
+// row (the mixed passes, the result kept in shared memory), then writes
+// y[row, k1 + g + N1·k2] times scale (times post[k1 + g + N1·k2] where post
+// is given: the chirp route's filter spectrum) with neighbouring threads
+// on neighbouring g, then k2: runs of G points at stride N1 (G 1: the
+// scatter of single points; G 4: whole 32-byte sectors).
+template <int PT, int G>
+__global__ void __launch_bounds__(1024)
+fourstep_rows_kernel(const float2* __restrict__ z,
+                     const float2* __restrict__ tw,
+                     const float2* __restrict__ post, float2* __restrict__ y,
+                     MixedPlan p, int n1, float s, float scale) {
+  extern __shared__ __align__(16) float2 mbuf[];
+  const int n2 = p.n;
+  const int t = threadIdx.x % p.t;
+  const int lr = threadIdx.x / p.t;
+  const int per_row = n1 / G;
+  const int64_t row = blockIdx.x / per_row;
+  const int k1 = static_cast<int>(blockIdx.x % per_row) * G;
+  const int64_t n = static_cast<int64_t>(n1) * n2;
+  const int pitch = 2 * p.stride + 1;
+  mixed_passes<1, PT, true>(p, true, t, z + row * n + (k1 + lr) * n2,
+                            mbuf + lr * pitch, tw, nullptr, s, 1.f);
+  const float2* fin = mbuf + ((p.passes - 1) & 1) * p.stride;
+  float2* yr = y + row * n + k1;
+  const float2* pr = post == nullptr ? nullptr : post + k1;
+  for (int i = threadIdx.x; i < G * n2; i += blockDim.x) {
+    const int g = i % G;
+    const int k2 = i / G;
+    const float2 v = fin[g * pitch + mswz(k2)];
+    const int at = g + n1 * k2;
+    float2 w = make_float2(v.x * scale, v.y * scale);
+    if (pr != nullptr) w = cmul(w, __ldg(pr + at));
+    yr[at] = w;
+  }
+}
+
+using FourstepCols = void (*)(const float2*, int64_t, const float2*,
+                              const float2*, float2*, MixedPlan, int, int,
+                              float);
+using FourstepRows = void (*)(const float2*, const float2*, const float2*,
+                              float2*, MixedPlan, int, float, float);
+
+FourstepCols cols_kernel(int points) {
+  if (points == 8) return fourstep_cols_kernel<8>;
+  return fourstep_cols_kernel<16>;
+}
+
+template <int PT>
+FourstepRows rows_kernel_of(int group) {
+  switch (group) {
+    case 1: return fourstep_rows_kernel<PT, 1>;
+    case 2: return fourstep_rows_kernel<PT, 2>;
+    case 4: return fourstep_rows_kernel<PT, 4>;
+    default: return nullptr;
+  }
+}
+
+// The launch-2 kernel of `points` points a thread and `group` rows a
+// block; null for a group other than 1, 2 or 4.
+FourstepRows rows_kernel(int points, int group) {
+  return points == 8 ? rows_kernel_of<8>(group) : rows_kernel_of<16>(group);
+}
+
+// Both launches' plans for n = n1·n2 with `cols` columns a launch-1 block
+// (0: the register kernel of n1, which then needs no plan) and `group` (1,
+// 2 or 4) rows a launch-2 block; cudaErrorInvalidValue where a plan is
+// invalid (make_plan), no register kernel takes n1, group is none of those
+// or does not divide n1, or a block would exceed 1024 threads.
+int fourstep_plans(long long n1, long long n2, int cols, int group,
+                   unsigned long long plan1, int passes1,
+                   unsigned long long plan2, int passes2, MixedPlan* p1,
+                   MixedPlan* p2) {
+  if (cols < 0 || (cols == 0 && reg_kernel(n1) == nullptr) ||
+      rows_kernel(8, group) == nullptr || n1 % group != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int rc = make_plan(n1, plan1, passes1, true,
+                     fourstep_points(n1, cols > 0 ? cols : 1), p1);
+  if (rc != 0) return rc;
+  rc = make_plan(n2, plan2, passes2, true, fourstep_points(n2, group), p2);
+  if (rc != 0) return rc;
+  p1->xs = static_cast<int>(n2);
+  if (cols * p1->t > 1024 || group * p2->t > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------- chirp
+
+// The chirp route's elementwise passes (n > 4096, m the length of its
+// FFTs): rows in blockIdx.y (strided by gridDim.y), points in a grid-stride
+// loop, neighbouring threads on neighbouring points.
+
+// a[row, i] = x[row, i]·c[i] for i < n, 0 for n <= i < m: step 1
+__global__ void __launch_bounds__(256)
+chirp_pre_kernel(const float2* __restrict__ x, int64_t ldx,
+                 const float2* __restrict__ c, float2* __restrict__ a,
+                 int64_t rows, int n, int m) {
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float2* xr = x + row * ldx;
+    float2* ar = a + row * m;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m;
+         i += gridDim.x * blockDim.x) {
+      ar[i] = i < n ? cmul(__ldg(xr + i), __ldg(c + i))
+                    : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// f[row, i] *= h[i], in place: step 3 where m's route has no epilogue for it
+__global__ void __launch_bounds__(256)
+chirp_product_kernel(float2* __restrict__ f, const float2* __restrict__ h,
+                     int64_t rows, int m) {
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    float2* fr = f + row * m;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m;
+         i += gridDim.x * blockDim.x) {
+      fr[i] = cmul(fr[i], __ldg(h + i));
+    }
+  }
+}
+
+// y[row, i] = g[row, i]·c[i]·post for i < n: step 5
+__global__ void __launch_bounds__(256)
+chirp_post_kernel(const float2* __restrict__ g, const float2* __restrict__ c,
+                  float2* __restrict__ y, int64_t rows, int n, int m,
+                  float post) {
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const float2* gr = g + row * m;
+    float2* yr = y + row * n;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x) {
+      const float2 w = cmul(__ldg(gr + i), __ldg(c + i));
+      yr[i] = make_float2(w.x * post, w.y * post);
+    }
+  }
+}
+
+// The elementwise passes' grid for rows of `points` points.
+dim3 chirp_grid(int64_t rows, long long points) {
+  const long long x = (points + 255) / 256;
+  return dim3(static_cast<unsigned>(x < 65535 ? x : 65535),
+              static_cast<unsigned>(rows < 65535 ? rows : 65535));
 }
 
 }  // namespace
@@ -1257,6 +1590,154 @@ extern "C" int c_ofdm_bluestein(const void* x, long long ldx,
                                            ni, post, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The set-up the four-step launches need on the current device for
+// n = n1·n2 (plan1, passes1 / plan2, passes2: the mixed plans of n1 / n2)
+// with `cols` columns a launch-1 block and `group` rows a launch-2 block:
+// both kernels' dynamic shared memory limit raised to the device's opt-in
+// maximum and their carveout to the largest shared share.  Refuses
+// (cudaErrorInvalidValue) a plan or block shape the kernels do not take,
+// or a block whose shared memory exceeds that maximum.
+extern "C" int c_ofdm_fourstep_prepare(long long n1, long long n2, int cols,
+                                       int group, unsigned long long plan1,
+                                       int passes1, unsigned long long plan2,
+                                       int passes2) {
+  MixedPlan p1, p2;
+  const int rc = fourstep_plans(n1, n2, cols, group, plan1, passes1, plan2,
+                                passes2, &p1, &p2);
+  if (rc != 0) return rc;
+  int dev = 0;
+  int optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fourstep_smem(p1, cols) > static_cast<size_t>(optin) ||
+      fourstep_smem(p2, group) > static_cast<size_t>(optin)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(
+          rows_kernel(fourstep_points(n2, group), group)),
+      cols > 0 ? reinterpret_cast<const void*>(
+                     cols_kernel(fourstep_points(n1, cols)))
+               : nullptr};
+  for (const void* k : kernels) {
+    if (k == nullptr) continue;
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(k,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// x [m rows, row stride ldx] complex64, n = n1·n2; tw1 the n1-point table
+// exp(sign·2πi·q/n1) (ops/dft.py::fft_twiddles) for the register kernel
+// (cols 0), else n1's mixed twiddle table, tw2 n2's
+// (ops/dft.py::mixed_twiddles), ftw [(n1 - 1)·n2]
+// (exp(sign·2πi·j2·k1/n), k1 major from 1; ops/dft.py::fourstep_twiddles),
+// post [n] complex64 or null (the product fused into launch 2's stores),
+// z [m, n] complex64 the workspace, y [m, n] complex64 (contiguous); after
+// c_ofdm_fourstep_prepare with the same sizes.  Launch 1 then launch 2 on
+// the stream; returns the first error.
+extern "C" int c_ofdm_fourstep_fft(const void* x, long long ldx,
+                                   const void* tw1, const void* ftw,
+                                   const void* tw2, const void* post, void* z,
+                                   void* y, long long m, long long n1,
+                                   long long n2, int cols, int group,
+                                   unsigned long long plan1, int passes1,
+                                   unsigned long long plan2, int passes2,
+                                   int sign, float scale, void* stream) {
+  if (m <= 0 || ldx < 0 || (sign != 1 && sign != -1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MixedPlan p1, p2;
+  const int rc = fourstep_plans(n1, n2, cols, group, plan1, passes1, plan2,
+                                passes2, &p1, &p2);
+  if (rc != 0) return rc;
+  const int per_block = cols > 0 ? cols : 128;   // launch 1's columns
+  const long long blocks1 = m * ((n2 + per_block - 1) / per_block);
+  const long long blocks2 = m * (n1 / group);
+  if (blocks1 > 0x7fffffffLL || blocks2 > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float s = static_cast<float>(sign);
+  const FourstepRows launch2 = rows_kernel(fourstep_points(n2, group), group);
+  if (cols == 0) {
+    const FourstepReg launch1 = reg_kernel(n1);
+    launch1<<<static_cast<unsigned>(blocks1), 128, 0, st>>>(
+        static_cast<const float2*>(x), ldx, static_cast<const float2*>(tw1),
+        static_cast<const float2*>(ftw), static_cast<float2*>(z),
+        static_cast<int>(n2), s);
+  } else {
+    const FourstepCols launch1 = cols_kernel(fourstep_points(n1, cols));
+    launch1<<<static_cast<unsigned>(blocks1), cols * p1.t,
+              fourstep_smem(p1, cols), st>>>(
+        static_cast<const float2*>(x), ldx, static_cast<const float2*>(tw1),
+        static_cast<const float2*>(ftw), static_cast<float2*>(z), p1,
+        static_cast<int>(n2), cols, s);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  launch2<<<static_cast<unsigned>(blocks2), group * p2.t,
+            fourstep_smem(p2, group), st>>>(
+      static_cast<const float2*>(z), static_cast<const float2*>(tw2),
+      static_cast<const float2*>(post), static_cast<float2*>(y), p2,
+      static_cast<int>(n1), s, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chirp route's elementwise passes (rows > 0, 0 < n <= m; on the
+// stream, no set-up): step 1, x [rows, row stride ldx] times the chirp c
+// [n], zero-padded into a [rows, m]; step 3, f [rows, m] times h [m] in
+// place; step 5, y [rows, n] = g[:, :n] (g [rows, m]) times c times post.
+extern "C" int c_ofdm_chirp_pre(const void* x, long long ldx, const void* c,
+                                void* a, long long rows, long long n,
+                                long long m, void* stream) {
+  if (rows <= 0 || ldx < 0 || n <= 0 || n > m || m > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chirp_pre_kernel<<<chirp_grid(rows, m), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(x), ldx, static_cast<const float2*>(c),
+      static_cast<float2*>(a), rows, static_cast<int>(n),
+      static_cast<int>(m));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int c_ofdm_chirp_product(void* f, const void* h, long long rows,
+                                    long long m, void* stream) {
+  if (rows <= 0 || m <= 0 || m > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chirp_product_kernel<<<chirp_grid(rows, m), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float2*>(f), static_cast<const float2*>(h), rows,
+      static_cast<int>(m));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int c_ofdm_chirp_post(const void* g, const void* c, void* y,
+                                 long long rows, long long n, long long m,
+                                 float post, void* stream) {
+  if (rows <= 0 || n <= 0 || n > m || m > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  chirp_post_kernel<<<chirp_grid(rows, n), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(g), static_cast<const float2*>(c),
+      static_cast<float2*>(y), rows, static_cast<int>(n),
+      static_cast<int>(m), post);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* c_ofdm_dft_error_string(int code) {

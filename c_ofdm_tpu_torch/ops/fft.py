@@ -11,7 +11,7 @@ Six interchangeable backends, the JAX package's names:
 * ``ct``, ``ct_bf16`` — two-stage Cooley-Tukey (``ct_dft``): two small GEMMs
   and a twiddle multiply, for power-of-two sizes (the wideband transform).
 * ``pallas``       — complex64 inputs go to K4 (``ops.dft.dft``, the DFT
-  kernel, one of five routes by n); complex128 inputs take the ``xla``
+  kernel, one of seven routes by n); complex128 inputs take the ``xla``
   branch, as in the JAX package.
 
 The GEMMs go to ``torch.matmul``, as the JAX package left them to XLA;

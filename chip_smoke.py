@@ -14,7 +14,8 @@ and C = 8 under pallas); the flagship step and the streaming receiver at
 LTE's 1536-point geometry under pallas (K4's mixed route); the flagship
 step at DVB-T2's 16K and 32K FFT sizes and at LTE 5G broadcast's 0.37
 kHz numerology (an 82944-point FFT) under pallas (K4's cluster route);
-and the
+the flagship step at that numerology sampled at 61.44 Msps (a
+165888-point FFT, K4's four-step route); and the
 MAC-framed link loop (``Mac``, the channel
 simulator ``apply_channel``, the batch and streaming receivers); and the
 command-line apps (``tx``, ``rx``, ``loopback``, ``ber-sweep``,
@@ -24,7 +25,8 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
   1 device    the card, its name and power limit (nvidia-smi)
   2 build     csrc/extract_windows.cu (K1, K2, K3: the wide and scalar
               bodies, and the empty kernel) and csrc/dft.cu (K4's radix,
-              mixed, cluster, Bluestein and dense routes), one nvcc each for
+              mixed, cluster, four-step, Bluestein, chirp and dense
+              routes), one nvcc each for
               sm_90a,
               started together; ptxas registers and spills of every
               instantiation
@@ -67,12 +69,21 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               12288 scaled and 65536, the 0.37 kHz broadcast step's TX
               [16, 2, 82944] sign +1 and RX view (row stride 92160),
               19683, 39366 scaled, 15625, 16807, 98304 and 131072
-              (cluster: c = 12, 9, 6, 5, 7, 12, 16); error <= 1e-5
-              max|Y| and <= 4x the plain version's (dft_ref; the cluster
-              route's own); radix, mixed, cluster and
-              Bluestein cases also within 1e-6 max|Y| of the route's own
-              plain version; one launch on the route each took, and no
-              twiddle planes built on the FFT routes
+              (cluster: c = 12, 9, 6, 5, 7, 12, 16); the 165888 step's TX
+              [8, 2, 165888] sign +1 and RX view (row stride 184320),
+              117649, 262144 scaled, 60025 and 390625 (four-step); 4099
+              and a strided view of 4099-point rows, 8209, 65537 scaled,
+              131071 and 8191 (chirp); [2304, 12] (dense); error <= 1e-5
+              max|Y| and <= 4x the plain version's (dft_ref; the cluster,
+              four-step and chirp routes' own); every route but the dense
+              one also within 1e-6 max|Y| of its own plain version; its
+              launches on each route's counter (one a call; the
+              four-step's two; the chirp route's own two or three and its
+              m-point FFTs' on m's route), and no twiddle planes built on
+              the FFT routes; then every register column kernel of the
+              four-step (N1 = 20-64) and the shared-memory one (N1 = 96
+              and 125), each at an n whose split picks it, against
+              dft_fourstep_ref
  15 pallas    the flagship step under pallas, B = 256: clean payloads exact
               with K4 launched 2 times (both radix) and K1 once per step;
               phase 5's impaired captures exact at their planted offsets;
@@ -99,7 +110,16 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               and RX view [48, 82944], per step against its bound (25.04
               and 31.69 us), and at [64, 19683] (the dense route at 16K
               and 19683 only, its 4.3 / 3.1 GB of planes dropped after;
-              the cluster route's other splits beside it, cold);
+              the cluster route's other splits beside it, cold; the
+              four-step route beside it at the 82944 step's shapes); the
+              four-step route at the 165888 step's TX [16, 165888] and RX
+              view [24, 165888] (per step against its bound, 31.7 us; its
+              other splits, row groups and column kernels beside it,
+              cold) and at [16, 117649] and [16, 262144]; the chirp route
+              at [2304, 4099] (against its bound, 45.1 us), [256, 8209]
+              and [16, 131071] (the dense route beside it up to 8209); the
+              dense route at [2304, 12] (warm
+              only: its rows fit the L2);
               every column's device time by CUDA events around one CUDA
               graph of its calls
  19 gather-timing  the card's floor per launch (an empty kernel on grids
@@ -193,7 +213,11 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               16K step also captured on the dense route) and at LTE 5G
               broadcast's 0.37 kHz numerology (82944-point FFT, B = 16; K1
               + 2 K4 cluster, 12-block clusters; impaired as at 32K, CFO
-              2e-6), the wideband step
+              2e-6) and at the same numerology sampled at 61.44 Msps
+              (165888-point FFT, B = 8; K1 + 2 K4 four-step calls of two
+              launches each; impaired at
+              CFO 1e-6, each frame a sample before its planted offset, as
+              the JAX package places it), the wideband step
               at B = 128 under ct (K1 wide);
               StreamingReceiver on phase 8's rings, S = 4, gated, at C = 1
               (K2 twice), 8 and 64 (K3 twice), and C = 8 under pallas (K3
@@ -213,8 +237,9 @@ receiver and the channel-sharded stream in worlds of ranks.  Phases, each printi
               graph pool's memory and the copy launches around a replay
 
 Then one JSON line describing the kernels (K4 as "dft", and its mixed,
-cluster and Bluestein routes as "dft_mixed", "dft_cluster" and
-"dft_bluestein"), and last one JSON line
+cluster, four-step, Bluestein and chirp routes as "dft_mixed",
+"dft_cluster", "dft_fourstep", "dft_bluestein" and "dft_chirp"), and last
+one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  ``--profile FILE`` also writes a
 torch.profiler table of 10 flagship steps to FILE, one of 10 streaming
@@ -265,6 +290,13 @@ B_16K, B_32K = 64, 32
 BROADCAST = dict(fft_size=82944, num_data_subc=48000, num_pilot_subc=600,
                  cp_size=9216, num_symb=2, pr_sin_len=4096, mod_type=6)
 B_BROADCAST = 16
+# the same numerology kept at the AD9361's full 61.44 Msps (an oversampled
+# capture, not a 3GPP FFT size): a 165888-point FFT (2^11·3^4, past the
+# cluster route) with an 18432-sample CP, K4's four-step route (64 x 2592),
+# B = 8 frames a step (4.43 M samples, the 82944 step's)
+OVERSAMPLED = dict(fft_size=165888, num_data_subc=48000, num_pilot_subc=600,
+                   cp_size=18432, num_symb=2, pr_sin_len=4096, mod_type=6)
+B_OVERSAMPLED = 8
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor FLOP/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -978,12 +1010,13 @@ def write_profile(path, events, what):
 
 
 def check_impaired(phase, step, cpu_step, caps_np, offs, payload_np,
-                   launches, cpu_rows=None):
+                   launches, cpu_rows=None, shift=0):
     """Receive impaired captures [B + zero rows, n] on the card: every
-    frame found at its planted offset with exact bytes, no frame in a zero
-    row, the kernel launches ``launches`` (a dict of wrappers -> count);
-    sync fields and found rows' bytes equal to the port's CPU run on the
-    first ``cpu_rows`` rows (all by default)."""
+    frame found at its planted offset (plus ``shift``: -1 where the JAX
+    package itself places frames a sample early) with exact bytes, no
+    frame in a zero row, the kernel launches ``launches`` (a dict of
+    wrappers -> count); sync fields and found rows' bytes equal to the
+    port's CPU run on the first ``cpu_rows`` rows (all by default)."""
     nb = payload_np.shape[0]
     caps = torch.from_numpy(caps_np).to(step.spec.device)
     before = {f: f.launches for f in launches}
@@ -998,9 +1031,9 @@ def check_impaired(phase, step, cpu_step, caps_np, offs, payload_np,
     got = res.mac_bytes.cpu().numpy()
     check(found[:nb].all(), f"{phase}: {int((~found[:nb]).sum())} frames lost")
     check(not found[nb:].any(), f"{phase}: a frame found in an all-zero row")
-    check(np.array_equal(fs[:nb], offs),
-          f"{phase}: frame_start != planted offset on "
-          f"{int((fs[:nb] != offs).sum())} rows")
+    check(np.array_equal(fs[:nb], offs + shift),
+          f"{phase}: frame_start != planted offset {shift:+d} on "
+          f"{int((fs[:nb] != offs + shift).sum())} rows")
     check(np.array_equal(got[:nb], payload_np), f"{phase}: payload mismatch")
     rows = slice(None, cpu_rows)
     res_c, s_c = cpu_step.receive(torch.from_numpy(caps_np[rows]))
@@ -1022,6 +1055,24 @@ def route_counts():
     return tuple(getattr(dft.dft, f"{r}_launches") for r in dft.ROUTES)
 
 
+def k4_per_call(n):
+    """K4's launches per route of one call at length n ({route: count}):
+    one on the route ``dft._route`` names; the four-step's two; the chirp
+    route's pre and post passes and, unless m is on the four-step route
+    (whose launch 2 takes the filter product), its product pass, beside
+    its two m-point FFTs on m's route."""
+    from c_ofdm_tpu_torch.ops import dft
+    route = dft._route(n)
+    if route == "fourstep":
+        return {"fourstep": 2}
+    if route != "chirp":
+        return {route: 1}
+    m = dft._chirp_m(n)
+    inner = dft._route(m)
+    return {"chirp": 2 if inner == "fourstep" else 3,
+            inner: 2 * k4_per_call(m)[inner]}
+
+
 def on_route(route, x, sign):
     """K4 on ``route`` where ``dft._route`` would pick another (a
     comparison, not the path)."""
@@ -1031,11 +1082,38 @@ def on_route(route, x, sign):
 
 
 def route_plain(route):
-    """The plain PyTorch version of a K4 route's own arithmetic."""
+    """The plain PyTorch version of a K4 route's own arithmetic (the dense
+    route's: dft_ref)."""
     from c_ofdm_tpu_torch.ops import dft
-    return {"radix": dft.dft_radix_ref, "mixed": dft.dft_mixed_ref,
-            "cluster": dft.dft_cluster_ref,
-            "bluestein": dft.dft_bluestein_ref}.get(route)
+    return dft._PLAIN.get(route, dft.dft_ref)
+
+
+def fourstep_split_fft(x, sign, split, group):
+    """The four-step kernels at a split n = N1·N2 and a launch-2 row group
+    other than the ones ``dft`` picks (launch 1 the column kernel
+    ``dft._fourstep_shape`` gives N1), through their C entry point and
+    counted nowhere: phase 18's comparisons, which the port never runs."""
+    from c_ofdm_tpu_torch.ops import dft
+    n = x.shape[-1]
+    n1, n2 = split
+    cols = dft._fourstep_shape(n1, n2)[0]
+    dev = x.device
+    x2 = dft._rows(x)
+    out = torch.empty(x2.shape, dtype=torch.complex64, device=dev)
+    z = torch.empty_like(out)
+    dft._prepare("fourstep", dev.index, n1, n2, cols, group)
+    tw1 = (dft.fft_twiddles if cols == 0 else dft.mixed_twiddles)(n1, sign,
+                                                                   dev)
+    rc = dft._lib().c_ofdm_fourstep_fft(
+        x2.data_ptr(), x2.stride(0), tw1.data_ptr(),
+        dft.fourstep_twiddles(n, n1, sign, dev).data_ptr(),
+        dft.mixed_twiddles(n2, sign, dev).data_ptr(), None, z.data_ptr(),
+        out.data_ptr(), x2.shape[0], n1, n2, cols, group,
+        *dft._plan_word(n1), *dft._plan_word(n2), sign, 1.0,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the four-step kernels at {split}, group {group} "
+          f"failed: {dft._lib().c_ofdm_dft_error_string(rc).decode()}")
+    return out
 
 
 def cluster_split_fft(x, sign, c):
@@ -1076,8 +1154,9 @@ def run_dft_checks(dev):
     Bluestein routes against the route's own plain version (the kernel's
     passes in plain PyTorch, within RADIX_REF_TOL·max|Y|: the two differ
     only in the rounding of each butterfly); each case on the route
-    ``dft._route`` names, one launch on that route's counter, and no
-    twiddle planes built for it on the FFT routes.  Returns {route: worst
+    ``dft._route`` names, its launches on each route's counter
+    (``k4_per_call``), and no twiddle planes built for it on the FFT
+    routes.  Returns {route: worst
     |kernel - plain|}: "dft" the radix and dense routes' against dft_ref,
     "mixed", "cluster" and "bluestein" against the route's own plain
     version."""
@@ -1098,6 +1177,7 @@ def run_dft_checks(dev):
     rx_odd = randc(B, nsym * odd.ofdm_len).reshape(B, nsym, odd.ofdm_len)
     t16, t32 = ModemConfig(**DVBT2_16K), ModemConfig(**DVBT2_32K)
     bc = ModemConfig(**BROADCAST)
+    wide = ModemConfig(**OVERSAMPLED)
     cases = [
         ("RX view", rx[..., cfg.cp_size:], -1, 1.0),
         ("TX", randc(B, cfg.num_symb, cfg.fft_size), +1, 1.0),
@@ -1132,17 +1212,35 @@ def run_dft_checks(dev):
         ("n=16807", randc(21, 16807), -1, 1.0),
         ("n=98304", randc(5, 98304), +1, 1.0),
         ("n=131072", randc(5, 131072), -1, 1.0),
+        ("TX 165888", randc(B_OVERSAMPLED, wide.num_symb, wide.fft_size), +1,
+         1.0),
+        ("RX view 165888", symbol_view(wide, B_OVERSAMPLED, dev, g), -1, 1.0),
+        ("n=117649", randc(16, 117649), -1, 1.0),
+        ("n=262144 scaled", randc(4, 262144), +1, 1.0 / 512),
+        ("n=60025", randc(5, 60025), +1, 1.0),
+        ("n=390625", randc(2, 390625), -1, 1.0),
+        ("n=4099", randc(2304, 4099), -1, 1.0),
+        ("view 4099", randc(B, 3 * 4611).reshape(B, 3, 4611)[..., 512:],
+         -1, 1.0),
+        ("n=8209", randc(256, 8209), +1, 1.0),
+        ("n=65537 scaled", randc(3, 65537), -1, 65537 ** -0.5),
+        ("n=131071", randc(4, 131071), +1, 1.0),
+        ("n=12", randc(2304, 12), -1, 1.0),
     ]
-    worst = {"dft": 0.0, "mixed": 0.0, "cluster": 0.0, "bluestein": 0.0}
+    worst = {"dft": 0.0, "mixed": 0.0, "cluster": 0.0, "fourstep": 0.0,
+             "bluestein": 0.0, "chirp": 0.0}
     for label, x, sign, scale in cases:
         route = dft._route(x.shape[-1])
-        want_counts = tuple(int(r == route) for r in dft.ROUTES)
+        each = k4_per_call(x.shape[-1])
+        want_counts = tuple(each.get(r, 0) for r in dft.ROUTES)
         before = route_counts()
         planes = dft.dft_planes.cache_info().misses
         got = dft.dft(x, sign, scale)
         counts = tuple(a - b for a, b in zip(route_counts(), before))
         built = dft.dft_planes.cache_info().misses - planes
-        plain_fn = dft.dft_cluster_ref if route == "cluster" else dft.dft_ref
+        plain_fn = {"cluster": dft.dft_cluster_ref,
+                    "fourstep": dft.dft_fourstep_ref,
+                    "chirp": dft.dft_chirp_ref}.get(route, dft.dft_ref)
         plain = plain_fn(x, sign, scale)
         x64 = x.to(torch.complex128)
         want = (torch.fft.fft(x64) if sign < 0
@@ -1166,7 +1264,7 @@ def run_dft_checks(dev):
               f"{err_p:.3e}, max|Y| {ymax:.3e} (need <= 1e-5 max|Y| and "
               f"<= 4x plain)")
         vs_own = ""
-        if route_plain(route):
+        if route != "dense":
             d = float((got - route_plain(route)(x, sign, scale)).abs().max())
             check(d <= RADIX_REF_TOL * ymax,
                   f"K4 {label}: |K4 - its {route} plain version| {d:.3e} > "
@@ -1179,6 +1277,38 @@ def run_dft_checks(dev):
             f"{scale:.4g}, {route} route: max abs err vs float64 {err:.3e} "
             f"({err / ymax:.2e} of max|Y|), plain ({plain_fn.__name__}) "
             f"{err_p:.3e}; |K4 - plain| {diff:.3e}{vs_own}")
+        del got, plain, x64, want
+    # every instance of the four-step's column kernels: the register one
+    # (N1 = A·B) and the shared-memory one (N1 = 96, 125), each at the
+    # least n past 131072 whose split picks it, on 3 rows: against
+    # dft_fourstep_ref and the float64 DFT
+    for n in (131220, 137781, 157464, 140625, 183708, 209952, 131250, 135000,
+              132300, 134456, 131712, 786432, 390625):
+        n1, n2 = dft._fourstep_split(n)
+        check(dft._route(n) == "fourstep", f"K4 n={n}: not four-step")
+        x = randc(3, n)
+        sign = +1 if n1 % 2 else -1
+        before = route_counts()
+        got = dft.dft(x, sign)
+        counts = tuple(a - b for a, b in zip(route_counts(), before))
+        own = dft.dft_fourstep_ref(x, sign)
+        x64 = x.to(torch.complex128)
+        want = (torch.fft.fft(x64) if sign < 0
+                else torch.fft.ifft(x64) * x.shape[-1])
+        torch.cuda.synchronize()
+        ymax = float(want.abs().max())
+        err = float((got.to(torch.complex128) - want).abs().max())
+        d = float((got - own).abs().max())
+        check(err <= 2e-6 * ymax and d <= RADIX_REF_TOL * ymax
+              and counts == tuple(2 * (r == "fourstep") for r in dft.ROUTES),
+              f"K4 four-step at {n1} x {n2}: {err / ymax:.2e} of max|Y| "
+              f"from float64, {d / ymax:.2e} from dft_fourstep_ref, "
+              f"launches per route {dict(zip(dft.ROUTES, counts))}")
+        worst["fourstep"] = max(worst["fourstep"], d)
+        kernel = "register" if n1 in dft._FOURSTEP_REG else "shared-memory"
+        say("dft", f"K4 four-step kernels at {n1} x {n2}, {kernel} column "
+            f"kernel, [3, {n}] sign {sign:+d}: {err / ymax:.2e} of max|Y| "
+            f"from float64, {d / ymax:.2e} from dft_fourstep_ref")
     return worst
 
 
@@ -1446,6 +1576,7 @@ def route_timing(dev, g):
     odd = ModemConfig(**NONSMOOTH)
     t16, t32 = ModemConfig(**DVBT2_16K), ModemConfig(**DVBT2_32K)
     bc = ModemConfig(**BROADCAST)
+    wide = ModemConfig(**OVERSAMPLED)
 
     def rand(*shape):
         return lambda: torch.randn(*shape, dtype=torch.complex64, device=dev,
@@ -1470,21 +1601,41 @@ def route_timing(dev, g):
                "82944"),
               ("RX view 82944", lambda: symbol_view(bc, B_BROADCAST, dev, g),
                -1, "82944"),
-              ("n=19683", rand(64, 19683), -1, None))
+              ("n=19683", rand(64, 19683), -1, None),
+              ("TX 165888", rand(B_OVERSAMPLED, wide.num_symb, wide.fft_size),
+               +1, "165888"),
+              ("RX view 165888", lambda: symbol_view(wide, B_OVERSAMPLED, dev,
+                                                     g), -1, "165888"),
+              ("n=117649", rand(16, 117649), -1, None),
+              ("n=262144", rand(16, 262144), +1, None),
+              ("n=4099 (prime)", rand(B * 9, 4099), -1, "[2304, 4099]"),
+              ("n=8209 (prime)", rand(256, 8209), -1, None),
+              ("n=131071 (prime)", rand(16, 131071), +1, None),
+              ("n=12", rand(B * 9, 12), -1, None))
     # dense / kernel each shape's route should reach (the 19683 case: its
     # before column), and each cluster step's share of its bound and ratio
     # to torch.fft
-    dense_target = {"mixed": 10, "cluster": 100, "n=19683": 50}
+    dense_target = {"mixed": 10, "cluster": 100, "n=19683": 50,
+                    "chirp": 50}
     step_targets = {"16k": (0.35, 2.0), "32k": (0.35, 2.0),
-                    "82944": (0.30, 1.5)}
+                    "82944": (0.30, 1.5), "165888": (0.20, 2.0)}
+    # K4 / torch.fft each shape should stay within
+    library_target = {"n=4099 (prime)": 3.0}
+    # the four-step's other splits and launch-2 row groups (N1, group),
+    # timed beside the 165888 step's shapes (cold)
+    fourstep_others = ((24, 2), (32, 2), (64, 1), (64, 2), (96, 4),
+                       (192, 4))
     out = {}
     for label, make, sign, step in shapes:
-        xs = [make() for _ in range(COLD_SETS)]
-        n = xs[0].shape[-1]
-        m = xs[0].numel() // n
+        n = make().shape[-1]
         route = dft._route(n)
+        # the dense route's rows (n < 16) are L2-sized: warm only
+        conds = (("warm", 1),) if route == "dense" else (("warm", 1),
+                                                          ("cold", COLD_SETS))
+        xs = [make() for _ in range(conds[-1][1])]
+        m = xs[0].numel() // n
         nbytes = 2 * m * n * 8
-        check(COLD_SETS * nbytes / 2 > 2 * L2_BYTES,
+        check(route == "dense" or COLD_SETS * nbytes / 2 > 2 * L2_BYTES,
               f"{label}: {COLD_SETS} input sets do not exceed the L2 twice")
         by = {"bytes": bytes_ms(nbytes),
               "operations": 5 * m * n * math.log2(n) / FP32_FLOP_S * 1e3}
@@ -1497,21 +1648,31 @@ def route_timing(dev, g):
         splits = [c for c in dft.CLUSTER_SPLITS if route == "cluster"
                   and c != dft._cluster_split(n)[0] and n % c == 0
                   and dft._fits("mixed", n // c)]
-        for cond, sets in (("warm", 1), ("cold", COLD_SETS)):
+        others = [o for o in fourstep_others if route == "fourstep"
+                  and step and n % o[0] == 0
+                  and dft._fits("mixed", n // o[0])]
+        for cond, sets in conds:
             lib = ((lambda i: torch.fft.fft(xs[i % sets])) if sign < 0
                    else (lambda i: torch.fft.ifft(xs[i % sets],
                                                   norm="forward")))
             fns = {"kernel": lambda i: dft.dft(xs[i % sets], sign),
                    "plain": lambda i: plain(xs[i % sets], sign),
                    "library": lib}
-            if n <= 16384 or n == 19683:
+            if route != "dense" and (n <= 16384 or n == 19683):
                 fns["dense"] = lambda i: on_route("dense", xs[i % sets], sign)
+            if step == "82944":   # the four-step route at the cluster's sizes
+                fns["four-step"] = lambda i: on_route("fourstep",
+                                                      xs[i % sets], sign)
             if n == 500:   # the dense route's own plain version
                 fns["dense plain"] = lambda i: dft.dft_ref(xs[i % sets],
                                                            sign)
             for c in splits if cond == "cold" else ():
                 fns[f"split c={c}"] = (lambda c: lambda i: cluster_split_fft(
                     xs[i % sets], sign, c))(c)
+            for o in others if cond == "cold" else ():
+                fns[f"split {o[0]} x {n // o[0]} group {o[1]}"] = (
+                    lambda o: lambda i: fourstep_split_fft(
+                        xs[i % sets], sign, (o[0], n // o[0]), o[1]))(o)
             for fn in fns.values():
                 cuda_ms(fn, 2 * sets)
             devt = {k: [] for k in fns}
@@ -1543,7 +1704,14 @@ def route_timing(dev, g):
                      f"kernel {ratio:.1f}x, target >= {target}x: "
                      f"{'met' if ratio >= target else 'MISSED'}); ")
             other = "".join(f"{k} {med[k] * 1e3:.3f} us; " for k in med
-                            if k.startswith("split") or k == "dense plain")
+                            if k.startswith("split")
+                            or k in ("dense plain", "four-step"))
+            lib_ratio = med["kernel"] / med["library"]
+            if label in library_target:
+                goal = library_target[label]
+                other += (f"K4 / torch.fft {lib_ratio:.2f} (target <= "
+                          f"{goal:g}x: "
+                          f"{'met' if lib_ratio <= goal else 'MISSED'}); ")
             say("dft-timing", f"K4 {route} route {label} [{m},{n}] sign "
                 f"{sign:+d}, {cond} L2: kernel {med['kernel'] * 1e3:.3f} us, "
                 f"{bound / med['kernel']:.1%} of the bound {bound * 1e3:.3f} "
@@ -1557,8 +1725,9 @@ def route_timing(dev, g):
             # the 16K planes (2 x 2.15 GB) go now; their host matrices stay
             # cached for phase 25's dense before column, which drops them
             dft.dft_planes.cache_clear()
-        if label == "n=19683":
-            # the 19683 planes (3.1 GB) and their host matrix (6.2 GB) go
+        if label in ("n=19683", "n=8209 (prime)"):
+            # the 19683 planes (3.1 GB) and their host matrix (6.2 GB) go,
+            # and the 8209 planes (539 MB)
             dft.dft_planes.cache_clear()
             fft._dft_matrix_np.cache_clear()
     fit = {(c, n // c): dft._prepare("cluster", dev.index, c, n // c)
@@ -1570,6 +1739,8 @@ def route_timing(dev, g):
         f"(cudaOccupancyMaxActiveClusters): {fit}")
     for route, rec in out.items():
         rec["bound_by"] = max(rec["limits"], key=rec["limits"].get)
+        if not rec["steps"]:    # the dense route: no step's shapes
+            continue
         say("dft-timing", f"K4 {route} route, summed over its step shapes, "
             f"cold L2: kernel {rec['kernel']:.5f} ms "
             f"({rec['bound'] / rec['kernel']:.1%} of the bound "
@@ -1586,7 +1757,9 @@ def route_timing(dev, g):
                      f" (targets: >= {lo:.0%} of the bound "
                      f"{'met' if share >= lo else 'MISSED'}, <= {hi:g}x "
                      f"torch.fft {'met' if ratio <= hi else 'MISSED'})")
-            say("dft-timing", f"K4 {route} route, the {step} step (TX + RX), "
+            what = (step if step.startswith("[")
+                    else f"the {step} step (TX + RX)")
+            say("dft-timing", f"K4 {route} route, {what}, "
                 f"cold L2: kernel {per['kernel']:.5f} ms ({share:.1%} of the "
                 f"bound {per['bound']:.5f} ms), torch.fft "
                 f"{per['library']:.5f} ms (K4 / library {ratio:.3f}), plain "
@@ -2735,12 +2908,17 @@ def launches_of(fn):
             if v != before.get(k, 0)}
 
 
-# K4's launch counter of each route and the kernel it launches
-K4_KERNELS = {"radix_launches": "fft_kernel",
-              "mixed_launches": "mixed_fft_kernel",
-              "cluster_launches": "cluster_fft_kernel",
-              "bluestein_launches": "bluestein_kernel",
-              "dense_launches": "dft_kernel"}
+# the device kernel one count of each K4 route counter stands for, by name
+# (a prefix where the route has several kernels: the four-step's column
+# and row kernels, the chirp route's pre, product and post passes, whose
+# FFTs count on m's route)
+K4_KERNELS = {"radix_launches": {"fft_kernel": 1},
+              "mixed_launches": {"mixed_fft_kernel": 1},
+              "cluster_launches": {"cluster_fft_kernel": 1},
+              "fourstep_launches": {"fourstep_": 1},
+              "bluestein_launches": {"bluestein_kernel": 1},
+              "chirp_launches": {"chirp_": 1},
+              "dense_launches": {"dft_kernel": 1}}
 
 
 def kernel_names(delta):
@@ -2749,12 +2927,11 @@ def kernel_names(delta):
     want = {}
     for (f, attr, k), v in delta.items():
         if attr == "class_launches":
-            name = f"extract_{k}_kernel"
-        elif attr in K4_KERNELS:
-            name = K4_KERNELS[attr]
+            names = {f"extract_{k}_kernel": 1}
         else:
-            continue
-        want[name] = want.get(name, 0) + v
+            names = K4_KERNELS.get(attr, {})
+        for name, each in names.items():
+            want[name] = want.get(name, 0) + each * v
     return want
 
 
@@ -2894,13 +3071,14 @@ def route_before(dev, tag, cfg, payloads, route):
     return {"route": route, "wall": wall, "device": devt}
 
 
-def impaired_receive(tag, cfg, step, payload, rng, cfo, routes):
+def impaired_receive(tag, cfg, step, payload, rng, cfo, routes, shift=0):
     """The step's receive on impaired captures of its frames (offsets in
     [0, 4096], CFO ``cfo``, amplitude 10, 30 dB, and ZERO_ROWS all-zero
-    rows), as a graph replay: every frame at its planted offset with exact
-    bytes, none in a zero row, K1 once and K4 once on the route of
-    ``routes``, the first 2 rows equal to the port's CPU run
-    (check_impaired); and equal to the same receive run eagerly."""
+    rows), as a graph replay: every frame at its planted offset (plus
+    ``shift``) with exact bytes, none in a zero row, K1 once and K4 once
+    (half the step's launches ``routes``, {route: launches a step}), the
+    first 2 rows equal to the port's CPU run (check_impaired); and equal to
+    the same receive run eagerly."""
     from c_ofdm_tpu_torch import make_frame_spec
     from c_ofdm_tpu_torch.models import tx
     from c_ofdm_tpu_torch.models.modem import FlagshipStep
@@ -2912,13 +3090,15 @@ def impaired_receive(tag, cfg, step, payload, rng, cfo, routes):
     cpu_step = FlagshipStep(make_frame_spec(cfg, torch.complex64,
                                             device="cpu",
                                             fft_backend=spec.fft_backend))
+    want = {r: routes.get(r, 0) // 2 for r in dft.ROUTES}
     before = route_counts()
     n_cpu, err = check_impaired(f"compiled {tag}", step, cpu_step, caps_np,
                                 offs, payload.cpu().numpy(),
-                                {dft.dft: 1, extract.extract_windows: 1},
-                                cpu_rows=2)
+                                {dft.dft: sum(want.values()),
+                                 extract.extract_windows: 1},
+                                cpu_rows=2, shift=shift)
     got = {r: a - b for r, a, b in zip(dft.ROUTES, route_counts(), before)}
-    check(got == {r: int(r in routes) for r in dft.ROUTES},
+    check(got == want,
           f"compiled {tag}: impaired receive K4 per route {got}")
     caps = torch.from_numpy(caps_np).to(spec.device)
     res_g, s_g = step.receive(caps)
@@ -2932,18 +3112,20 @@ def impaired_receive(tag, cfg, step, payload, rng, cfo, routes):
     say("compiled", f"{tag}: impaired B={payload.shape[0]}+{ZERO_ROWS} "
         f"captures of {caps_np.shape[1]} samples, offsets "
         f"{int(offs.min())}..{int(offs.max())}, CFO {cfo:g}, 30 dB: every "
-        f"frame once at its planted offset, payloads exact, zero rows not "
+        f"frame once at its planted offset{f' {shift:+d}' if shift else ''}, "
+        f"payloads exact, zero rows not "
         f"found, K4 {got}; graph = eager; {n_cpu} rows equal to the CPU run "
         f"(constellation max abs diff {err:.3g})")
 
 
 def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False,
-                  routes=None, before=None, impaired=None):
+                  routes=None, before=None, impaired=None, shift=0):
     """One flagship step: FlagshipStep's graph against the same step run
     eagerly on the same payloads; with ``routes``, K4's launches per replay
     on each route checked; with ``before``, the step once more with K4 on
     that route (route_before); with ``impaired`` (a CFO), the receive on
-    impaired captures (impaired_receive)."""
+    impaired captures (impaired_receive, frames expected at their planted
+    offset plus ``shift``)."""
     from c_ofdm_tpu_torch import make_frame_spec
     from c_ofdm_tpu_torch.models import rx, tx
     from c_ofdm_tpu_torch.models.modem import FlagshipStep
@@ -2994,7 +3176,8 @@ def flagship_cell(dev, tag, cfg, backend, batch, rng, jit_check=False,
     say("compiled", f"{tag}: top device kernels per replay: "
         f"{top_kernels(events, 4)}")
     if impaired:
-        impaired_receive(tag, cfg, step, payloads[0], rng, impaired, routes)
+        impaired_receive(tag, cfg, step, payloads[0], rng, impaired, routes,
+                         shift)
     cell = {"tag": tag, "times": times, "launches": count_names(replay),
             "worst": worst, "capture_s": recs[0].capture_s,
             "pool_mib": recs[0].pool_bytes / 2**20}
@@ -3234,27 +3417,33 @@ def run_compiled(dev, card, stream_data, sharded_cells):
             c["phase_s"] = time.perf_counter() - t
             cells.append(c)
 
-    for tag, cfg, backend, batch, routes, before, impaired in (
+    # (tag, config, backend, batch, K4 launches per route a step, the before
+    # column's route,
+    # the impaired captures' CFO, their frames' offset from the planted one:
+    # at 165888 both packages place each impaired frame a sample early)
+    for tag, cfg, backend, batch, routes, before, impaired, shift in (
             ("flagship matmul", ModemConfig(), "matmul", B, None, None,
-             None),
+             None, 0),
             ("flagship pallas", ModemConfig(), "pallas", B, {"radix": 2},
-             None, None),
+             None, None, 0),
             ("flagship pallas 1536", ModemConfig(**LTE1536), "pallas", B,
-             {"mixed": 2}, "dense", None),
+             {"mixed": 2}, "dense", None, 0),
             ("flagship pallas 510", ModemConfig(**NONSMOOTH), "pallas", B,
-             {"bluestein": 2}, None, None),
+             {"bluestein": 2}, None, None, 0),
             ("flagship pallas 16k", ModemConfig(**DVBT2_16K), "pallas", B_16K,
-             {"cluster": 2}, "dense", 1e-5),
+             {"cluster": 2}, "dense", 1e-5, 0),
             ("flagship pallas 32k", ModemConfig(**DVBT2_32K), "pallas", B_32K,
-             {"cluster": 2}, None, 2e-6),
+             {"cluster": 2}, None, 2e-6, 0),
             ("flagship pallas 82944", ModemConfig(**BROADCAST), "pallas",
-             B_BROADCAST, {"cluster": 2}, None, 2e-6),
+             B_BROADCAST, {"cluster": 2}, None, 2e-6, 0),
+            ("flagship pallas 165888", ModemConfig(**OVERSAMPLED), "pallas",
+             B_OVERSAMPLED, {"fourstep": 4}, None, 1e-6, -1),
             ("wideband ct", ModemConfig(**WIDEBAND), "ct", B_WIDE, None,
-             None, None)):
+             None, None, 0)):
         timed(lambda: flagship_cell(dev, tag, cfg, backend, batch, rng,
                                     jit_check=backend == "matmul",
                                     routes=routes, before=before,
-                                    impaired=impaired))
+                                    impaired=impaired, shift=shift))
     cfg = ModemConfig()
     for backend, chans in (("matmul", CHANNELS), ("pallas", (STATE_C,))):
         spec = make_frame_spec(cfg, torch.complex64, device=dev,
@@ -3273,7 +3462,7 @@ def run_compiled(dev, card, stream_data, sharded_cells):
     routes = dict(zip(dft.ROUTES, route_counts()))
     check(all(counts.values()) and all(routes[r] for r in
                                        ("radix", "mixed", "cluster",
-                                        "bluestein")),
+                                        "fourstep", "bluestein")),
           f"compiled: a kernel never replayed: {counts}, K4 {routes}")
     say("compiled", f"replay launches in this phase {counts} (K4 per route "
         f"{routes})")
@@ -3474,7 +3663,8 @@ def main():
         "bound_ms": k4["routes"][route]["bound"],
         "bound_by": k4["routes"][route]["bound_by"],
         "library_ms": k4["routes"][route]["library"],
-    } for route in ("mixed", "cluster", "bluestein")]}), flush=True)
+    } for route in ("mixed", "cluster", "fourstep", "bluestein", "chirp")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

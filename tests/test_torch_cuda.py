@@ -1,7 +1,8 @@
-"""The port on the card: K1, K2, K3 and K4 (each of its five routes)
+"""The port on the card: K1, K2, K3 and K4 (each of its seven routes)
 against their plain versions, the flagship step (matmul and pallas
 backends, and pallas at a 1536-point geometry, at DVB-T2's 16K and 32K
-FFT sizes and at LTE 5G broadcast's 82944), one gated streaming buffer,
+FFT sizes, at LTE 5G broadcast's 82944 and at the same numerology sampled
+at 61.44 Msps, 165888), one gated streaming buffer,
 the MAC codec and channel simulator against their CPU runs, and the
 captured calls (CUDA-graph replays) against their eager runs, the sharded
 receiver and the channel-sharded stream among them.
@@ -628,6 +629,184 @@ def test_pallas_flagship_step_broadcast_on_card(dev):
     torch.cuda.synchronize()
     assert extract.extract_windows.launches == k1 + 1
     assert _route_counts() == {k: v + 2 * (k in ("launches", "cluster"))
+                               for k, v in before.items()}
+    assert bool(s.found.all()) and not bool(s.frame_start.any())
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
+                                       fft_backend="pallas"))
+    res_c, _ = cpu(torch.from_numpy(payload))
+    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
+
+
+_FOURSTEP_CASES = {
+    # name: (rows, or "view" for rows of stride n + cp read in place, n,
+    # sign, scale)
+    "tx_165888": (16, 165888, +1, 1.0),
+    "rx_view_165888": ("view", 165888, -1, 1.0),
+    "n117649": (16, 117649, -1, 1.0),
+    "n262144_scaled": (4, 262144, +1, 1.0 / 512),
+    "n60025": (5, 60025, +1, 1.0),
+    "n390625": (2, 390625, -1, 1.0),      # the shared-memory column kernel
+}
+_CHIRP_CASES = {
+    "n4099": (2304, 4099, -1, 1.0),
+    "rx_view_4099": ("view", 4099, -1, 1.0),
+    "n8209": (256, 8209, +1, 1.0),
+    "n8191": (5, 8191, -1, 1.0),
+    "n65537_scaled": (3, 65537, -1, 65537 ** -0.5),
+    "n131071": (4, 131071, +1, 1.0),
+}
+# the views' (cp, frames): the 165888 step's 18432 samples at B = 8; a
+# 512-sample gap on 256 frames at 4099
+_LARGE_VIEWS = {165888: (18432, 8), 4099: (512, 256)}
+# K4's launches per route of one call: the four-step's two; the chirp
+# route's pre and post passes, its filter product unless m is on the
+# four-step route (fused there), and its two m-point FFTs on m's route
+# (8232, 16384 and 16464 on the cluster route, 131220 and 262144 on the
+# four-step one)
+_LAUNCHES = {165888: {"fourstep": 2}, 117649: {"fourstep": 2},
+             262144: {"fourstep": 2}, 60025: {"fourstep": 2},
+             390625: {"fourstep": 2},
+             4099: {"chirp": 3, "cluster": 2}, 8209: {"chirp": 3,
+                                                      "cluster": 2},
+             8191: {"chirp": 3, "cluster": 2},
+             65537: {"chirp": 2, "fourstep": 4},
+             131071: {"chirp": 2, "fourstep": 4}}
+
+
+def _large_input(cases, case, g, dev):
+    rows, n, sign, scale = cases[case]
+    if rows == "view":   # rows of stride n + cp, read in place
+        cp, b = _LARGE_VIEWS[n]
+        x = torch.randn(b, 3 * (n + cp), dtype=torch.complex64, device=dev,
+                        generator=g).reshape(b, 3, n + cp)[..., cp:]
+    else:
+        x = torch.randn(rows, n, dtype=torch.complex64, device=dev,
+                        generator=g)
+    return x, sign, scale
+
+
+def _check_fourstep_or_chirp(x, sign, scale, route, launches):
+    """dft(x) on ``route`` against its plain version (within 1e-6·max|Y|)
+    and the float64 DFT (within 2e-6·max|Y|): ``launches`` ({route: n})
+    counted on each route's counter and in all, no n x n planes built."""
+    assert dft._route(x.shape[-1]) == route
+    dft.dft_planes.cache_clear()
+    before = _route_counts()
+    got = dft.dft(x, sign, scale)
+    torch.cuda.synchronize()
+    want_counts = {k: v + launches.get(k, 0) for k, v in before.items()}
+    want_counts["launches"] += sum(launches.values())
+    assert _route_counts() == want_counts
+    assert dft.dft_planes.cache_info().currsize == 0
+    assert got.shape == x.shape and got.dtype == torch.complex64
+    want = _dft64(x, sign, scale)
+    ymax = float(want.abs().max())
+    assert float((got.to(torch.complex128) - want).abs().max()) <= 2e-6 * ymax
+    own = dft._PLAIN[route](x, sign, scale)
+    assert float((got - own).abs().max()) <= 1e-6 * ymax
+
+
+@pytest.mark.parametrize("case", sorted(_FOURSTEP_CASES) + sorted(
+    _CHIRP_CASES))
+def test_dft_fourstep_and_chirp_kernels_match_plain_versions(dev, case):
+    """The four-step route (two launches through a workspace) and the chirp
+    route (Bluestein over the FFT routes) against their own plain versions
+    dft_fourstep_ref / dft_chirp_ref (the same steps and tables, within
+    1e-6·max|Y|) and the float64 DFT (within 2e-6·max|Y|), at the 165888
+    step's shapes and primes past 4096 (strided views among them), both
+    signs; each launch on its kernel's route counter, and no n x n planes
+    built."""
+    cases = _FOURSTEP_CASES if case in _FOURSTEP_CASES else _CHIRP_CASES
+    route = "fourstep" if case in _FOURSTEP_CASES else "chirp"
+    x, sign, scale = _large_input(cases, case, torch.Generator(
+        device=dev).manual_seed(16), dev)
+    _check_fourstep_or_chirp(x, sign, scale, route, _LAUNCHES[x.shape[-1]])
+
+
+# for each launch-1 kernel, the least n past 131072 whose split picks it
+# (the register kernel of N1 = A·B), and two n whose N1 is past 64 (the
+# shared-memory kernel)
+_COLUMN_KERNEL_N = {20: 131220, 21: 137781, 24: 157464, 25: 140625,
+                    28: 183708, 32: 209952, 35: 131250, 40: 135000,
+                    49: 132300, 56: 134456, 64: 131712, 96: 786432,
+                    125: 390625}
+
+
+@pytest.mark.parametrize("n1", sorted(_COLUMN_KERNEL_N))
+def test_dft_fourstep_instances_match_plain_version(dev, n1):
+    """Each instance of the four-step's register column kernel (N1 = A·B)
+    and the shared-memory one, at an n whose split picks it, on 3 rows:
+    against dft_fourstep_ref within 1e-6·max|Y| and the float64 DFT within
+    2e-6·max|Y|, two launches on the four-step counter."""
+    n = _COLUMN_KERNEL_N[n1]
+    assert dft._fourstep_split(n)[0] == n1
+    assert (n1 in dft._FOURSTEP_REG) == (n1 <= 64)
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(3, n, dtype=torch.complex64, device=dev, generator=g)
+    sign = +1 if n1 % 2 else -1
+    _check_fourstep_or_chirp(x, sign, 1.0, "fourstep", {"fourstep": 2})
+
+
+@pytest.mark.parametrize("case", ["rx_view_165888", "n4099", "n131071"])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_dft_fourstep_and_chirp_replay_in_a_graph(dev, case, sign):
+    """The four-step and chirp routes captured in a CUDA graph, their
+    workspace and buffers allocated inside the capture (from the graph's
+    pool): each replay equals the eager launch bit for bit, on new data
+    copied into the captured input too."""
+    cases = _FOURSTEP_CASES if case in _FOURSTEP_CASES else _CHIRP_CASES
+    g = torch.Generator(device=dev).manual_seed(17)
+    x, _, scale = _large_input(cases, case, g, dev)
+    eager = dft.dft(x, sign, scale)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        dft.dft(x, sign, scale)             # warm-up: set-up and tables
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dft.dft(x, sign, scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x2, _, _ = _large_input(cases, case, g, dev)
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, dft.dft(x2, sign, scale))
+
+
+def test_dft_fourstep_refused_setup_raises(dev):
+    """A four-step set-up the kernels do not take raises RuntimeError and
+    runs nothing: a launch-1 block past 1024 threads (64 columns of 8192
+    points), a launch-2 row group that does not divide N1, a register
+    kernel for an N1 it is not built for (96; 16, which no split past
+    131072 picks)."""
+    for size in ((8192, 8192, 64, 1), (49, 2401, 0, 4), (96, 2048, 0, 1),
+                 (16, 8192, 0, 4)):
+        with pytest.raises(RuntimeError, match="set-up"):
+            dft._prepare("fourstep", dev.index, *size)
+
+
+def test_pallas_flagship_step_165888_on_card(dev):
+    """B = 2 at the 0.37 kHz numerology sampled at 61.44 Msps (a
+    165888-point FFT, CP 18432) under fft_backend="pallas": K4 called
+    twice, both on the four-step route (two launches each), K1 once,
+    payloads exact and equal to the CPU run."""
+    cfg = ModemConfig(fft_size=165888, num_data_subc=48000,
+                      num_pilot_subc=600, cp_size=18432, num_symb=2,
+                      pr_sin_len=4096, mod_type=6)
+    payload = np.random.default_rng(165888).integers(
+        0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend="pallas")
+    before = _route_counts()
+    k1 = extract.extract_windows.launches
+    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+    torch.cuda.synchronize()
+    assert extract.extract_windows.launches == k1 + 1
+    assert _route_counts() == {k: v + 4 * (k in ("launches", "fourstep"))
                                for k, v in before.items()}
     assert bool(s.found.all()) and not bool(s.frame_start.any())
     np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)

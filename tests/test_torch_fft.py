@@ -128,28 +128,35 @@ def test_dft_leading_dims_and_wrapper_on_cpu():
     (8, "dense"), (16, "radix"), (500, "mixed"), (512, "radix"),
     (8192, "radix"), (16384, "cluster"), (1536, "mixed"), (600, "mixed"),
     (448, "mixed"), (6144, "mixed"), (509, "bluestein"), (4093, "bluestein"),
-    (8191, "dense"), (0, "dense"), (12288, "cluster"), (13122, "cluster"),
+    (8191, "chirp"), (0, "dense"), (12288, "cluster"), (13122, "cluster"),
     (24576, "cluster"), (32768, "cluster"), (65536, "cluster"),
-    (19683, "cluster"), (39366, "cluster"), (65537, "dense"),
-    (131072, "cluster"), (82944, "cluster"), (117649, "dense"),
-    (262144, "dense")])
+    (19683, "cluster"), (39366, "cluster"), (65537, "chirp"),
+    (131072, "cluster"), (82944, "cluster"), (117649, "fourstep"),
+    (262144, "fourstep"), (11, "dense"), (4099, "chirp"),
+    (131071, "chirp"), (165888, "fourstep"), (60025, "fourstep"),
+    (1 << 25, "fourstep"), (1 << 26, "fourstep"), ((1 << 25) - 1, "chirp"),
+    ((1 << 25) + 1, None), (7 ** 9, None), (1 << 27, None)])
 def test_dft_route_by_size(n, route):
     """The kernel is chosen by n alone: the radix FFT for every power of two
     from 16 to 8192, the mixed-radix FFT for every other 7-smooth n from 16
     to 8192, the cluster FFT for every 7-smooth n from 8193 to 131072 with
-    a split n = c·L (c from 3 to 16; L <= 8192), Bluestein for every other n
-    from 16 to 4096, the dense product for what is left (n = 0 too: an empty
-    launch); each plain pass version refuses the sizes its kernel does not
-    take (the mixed one takes the radix route's too), and so does a launch
-    forced onto such a kernel."""
+    a split n = c·L (c from 3 to 16; L <= 8192), the four-step FFT for
+    every other 7-smooth n with a split N1·N2 (both from 16 to 8192),
+    Bluestein for every other n from 16 to 4096, the chirp route (Bluestein
+    over those FFTs) for every other n up to 2^25, the dense product below
+    16 points (n = 0 too: an empty launch), and none past that; each plain
+    pass version refuses the sizes its kernel does not take (the mixed one
+    takes the radix route's too, the four-step one the cluster route's and
+    every radix or mixed n >= 256, the chirp one every n from 4097 to
+    2^25), and so does a launch forced onto such a kernel."""
     assert tdft._route(n) == route
-    x = torch.zeros((1, n), dtype=torch.complex64)
+    x = torch.zeros((1, 1), dtype=torch.complex64).expand(1, n)
     if route != "radix":
         with pytest.raises(ValueError, match="power of two"):
             tdft.dft_radix_ref(x)
         with pytest.raises(ValueError, match="does not take"):
             tdft._launch(x, -1, 1.0, "radix")
-    if route in ("cluster", "bluestein", "dense"):
+    if route in ("cluster", "fourstep", "bluestein", "chirp", "dense", None):
         with pytest.raises(ValueError, match="7-smooth"):
             tdft.dft_mixed_ref(x)
     if route != "cluster":
@@ -157,13 +164,26 @@ def test_dft_route_by_size(n, route):
             tdft.dft_cluster_ref(x)
         with pytest.raises(ValueError, match="does not take"):
             tdft._launch(x, -1, 1.0, "cluster")
+    if not (route in ("radix", "mixed", "cluster", "fourstep") and n >= 256):
+        with pytest.raises(ValueError, match="split n = N1"):
+            tdft.dft_fourstep_ref(x)
+        with pytest.raises(ValueError, match="does not take"):
+            tdft._launch(x, -1, 1.0, "fourstep")
     if route != "bluestein":
         with pytest.raises(ValueError, match="is not from"):
             tdft.dft_bluestein_ref(x)
         with pytest.raises(ValueError, match="does not take"):
             tdft._launch(x, -1, 1.0, "bluestein")
+    if not 4096 < n <= 1 << 25:
+        with pytest.raises(ValueError, match="dft_chirp_ref: n="):
+            tdft.dft_chirp_ref(x)
+        with pytest.raises(ValueError, match="does not take"):
+            tdft._launch(x, -1, 1.0, "chirp")
     if n == 0:
         assert tdft.dft(x).shape == x.shape
+    if route is None:
+        with pytest.raises(ValueError, match=f"no route takes n={n}"):
+            tdft.dft(x)
 
 
 def test_forced_route_is_scoped():
@@ -314,9 +334,10 @@ def test_dft_mixed_and_bluestein_refs_match_dft_pallas(n, sign):
 
 
 def test_new_routes_on_cpu_run_dft_ref():
-    """On CPU tensors dft is dft_ref on every route but the cluster one,
-    and dft_cluster_ref there (building no n x n planes), with no launch
-    counted."""
+    """On CPU tensors dft is dft_ref on the radix, mixed and Bluestein
+    routes, and dft_cluster_ref on the cluster one (building no n x n
+    planes), with no launch counted (tests/test_torch_fourstep.py: the
+    four-step and chirp routes)."""
     before = (tdft.dft.launches, tdft.dft.mixed_launches,
               tdft.dft.cluster_launches, tdft.dft.bluestein_launches,
               tdft.dft.dense_launches)
