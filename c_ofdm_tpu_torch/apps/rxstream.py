@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from ..io import trace as tracing
 from . import add_device_arg, resolve_device
 
 
@@ -69,8 +70,23 @@ class BlockStager:
             return torch.from_numpy(np.array(self._wire(block)))
         k = self._next
         self._next = (k + 1) % self.SLOTS
+        rec = tracing.recorder
+        if rec.on:
+            with rec.span("slot_wait"):
+                self._wait(k)
+            with rec.span("fill"):
+                host = self._fill(k, block)
+            with rec.span("h2d"):
+                return self._h2d(k, host)
+        self._wait(k)
+        return self._h2d(k, self._fill(k, block))
+
+    def _wait(self, k: int) -> None:
         if self._events[k] is not None:
             self._events[k].synchronize()      # its last copy has left
+
+    def _fill(self, k: int, block: np.ndarray) -> torch.Tensor:
+        """Slot ``k``'s pinned host tensor, holding ``block``."""
         dtype = torch.float32 if np.iscomplexobj(block) else torch.int16
         host = self._host[k]
         if host is None or host.shape[0] != block.shape[0] \
@@ -84,6 +100,11 @@ class BlockStager:
             h[:, 1] = block.imag
         else:
             h[...] = block
+        return host
+
+    def _h2d(self, k: int, host: torch.Tensor) -> torch.Tensor:
+        """Enqueue slot ``k``'s copy on the side stream; the compute stream
+        waits for it."""
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._copy_stream):
             dev = host.to(self.device, non_blocking=True)
@@ -134,7 +155,8 @@ def main(argv=None):
     p.add_argument("--profile", default="",
                    help="write a torch.profiler chrome trace of the run "
                         "into this directory (view in chrome://tracing or "
-                        "Perfetto)")
+                        "Perfetto), with the program's spans on its clock; "
+                        "turns the trace recorder on (io/trace.py)")
     add_device_arg(p)
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
@@ -304,6 +326,7 @@ def main(argv=None):
         from torch.profiler import ProfilerActivity, profile
         prof = profile(activities=[ProfilerActivity.CPU]
                        + ([ProfilerActivity.CUDA] if cuda else []))
+        tracing.enable()       # spans, stage marks in the graphs, counts
     else:
         prof = contextlib.nullcontext()
     t_wall0 = time.perf_counter()
@@ -381,8 +404,13 @@ def main(argv=None):
     out_f.close()
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile,
-                                              "rxstream_trace.json"))
+        path = os.path.join(args.profile, "rxstream_trace.json")
+        prof.export_chrome_trace(path)
+        recorded = tracing.drain()
+        tracing.disable()
+        tracing.merge_chrome_trace(path, recorded)
+        with open(path) as f:
+            stages = tracing.stage_split(json.load(f)["traceEvents"])
 
     # buffers processed before t_steady (first-call costs) are excluded from
     # the steady rate: one buffer normally, the whole first chunk when
@@ -416,6 +444,11 @@ def main(argv=None):
         # indistinguishable from 'frame with seq 0 arrived'
         summary["max_seq"] = max_seq if (n_frames - n_crc_bad) > 0 else -1
         summary["payload_checksum_u32"] = payload_sum
+    if args.profile:
+        # the recorder's counts and, on the card, each staged replay's
+        # device time by stage (microseconds over the replays read)
+        summary["trace_counts"] = recorded["counts"]
+        summary["stage_device_us"] = stages
     if args.summary_json:
         text = json.dumps(summary)
         if args.summary_json == "-":

@@ -67,6 +67,11 @@
 // c_ofdm_empty_launch starts a kernel that does nothing on a given grid: its
 // device time is the card's floor for one launch of that grid.
 //
+// c_ofdm_stage_mark starts stage_mark_kernel<stage>, one thread that does
+// nothing: a mark in the device timeline (io/trace.py captures one into a
+// traced graph at each stage boundary of the receive chain), named by the
+// stage's index in the profiler's trace.
+//
 // Interface: plain C, loaded with ctypes (c_ofdm_tpu_torch/ops/_kernels.py).
 // A launch goes on the caller's stream and does not synchronise; each
 // function returns cudaGetLastError() after its launch.
@@ -175,6 +180,11 @@ extract_scalar_kernel(const T* __restrict__ x, const S* __restrict__ starts,
 
 __global__ void empty_kernel() {}
 
+constexpr int kStages = 6;   // io/trace.py's STAGES
+
+template <int Stage>
+__global__ void stage_mark_kernel() {}
+
 template <typename S>
 void launch(const void* x, const void* starts, void* out, int64_t per_row,
             int64_t n, int64_t win, int elem_bytes, int units, dim3 grid,
@@ -244,6 +254,23 @@ extern "C" int c_ofdm_empty_launch(int grid_x, int grid_y, int threads,
   }
   empty_kernel<<<dim3(grid_x, grid_y), threads, 0,
                  static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mark of stage `stage` (0 .. kStages - 1) on `stream`.
+extern "C" int c_ofdm_stage_mark(int stage, void* stream) {
+  if (stage < 0 || stage >= kStages) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case 0: stage_mark_kernel<0><<<1, 1, 0, st>>>(); break;
+    case 1: stage_mark_kernel<1><<<1, 1, 0, st>>>(); break;
+    case 2: stage_mark_kernel<2><<<1, 1, 0, st>>>(); break;
+    case 3: stage_mark_kernel<3><<<1, 1, 0, st>>>(); break;
+    case 4: stage_mark_kernel<4><<<1, 1, 0, st>>>(); break;
+    default: stage_mark_kernel<5><<<1, 1, 0, st>>>(); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

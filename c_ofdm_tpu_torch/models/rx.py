@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..io import trace
 from ..ops import cfo, chanest, extract, modulation, sync
 from ..utils import graphs
 from .frame import FrameSpec
@@ -39,13 +40,17 @@ def demod_sig(spec: FrameSpec, sig: torch.Tensor,
     """Demodulate the post-burst span [..., preamble_len + message_len]
     (preamble at offset 0) whose exact start is known.  All preamble+message
     symbols go through ONE partial-DFT product, then pilot equalization runs
-    per group (the preamble group and the message group)."""
+    per group (the preamble group and the message group).  Marks the
+    recover, dft and equalize stages (``io/trace.py``)."""
     cfg = spec.cfg
+    trace.mark("recover", sig)
     sig, shift = cfo.recover_fused(spec, sig)
     lead = sig.shape[:-1]
     nsym_all = cfg.num_pr_symb + cfg.num_symb
     syms = sig.reshape(*lead, nsym_all, cfg.ofdm_len)[..., cfg.cp_size:]
+    trace.mark("dft", sig)
     pil, data = chanest.bins_transform(spec, syms)
+    trace.mark("equalize", sig)
     P = cfg.num_pr_symb
     pre_pts = chanest.pilot_equalize(spec, pil[..., :P, :], data[..., :P, :])
     const = chanest.pilot_equalize(spec, pil[..., P:, :], data[..., P:, :])
@@ -175,8 +180,11 @@ def extract_sigs_ring(spec: FrameSpec, ring: torch.Tensor,
 def receive_batch(spec: FrameSpec, captures: torch.Tensor,
                   estimator: str = "lq"):
     """Batched single-frame RX: captures [B, n] -> (RxResult, SyncResult).
-    RxResult rows are garbage where found is False (mask downstream)."""
+    RxResult rows are garbage where found is False (mask downstream).
+    Marks the sync and extract stages, then ``demod_sig``'s."""
+    trace.mark("sync", captures)
     s = synchronize(spec, captures)
+    trace.mark("extract", captures)
     sigs = extract_sigs_rows(spec, captures, s.frame_start)
     return demod_sig(spec, sigs, estimator), s
 

@@ -38,12 +38,14 @@ checkpoint resumes in either package.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..io import trace
 from ..ops import extract, sync
 from ..utils import graphs
 from .frame import FrameSpec
@@ -188,6 +190,7 @@ def gated_hits(spec: FrameSpec, ring: torch.Tensor, min_pos: torch.Tensor,
     cand_w = torch.where(cand_valid, cand_w, 0)
     start = torch.clamp(cand_w * hop - hop, 0, n - win)    # [..., K]
 
+    trace.count("regions_scored", K * math.prod(lead))
     if lead:
         regions = extract.extract_windows_multi(ring, start, win)
     else:
@@ -259,13 +262,16 @@ def process_buffer(spec: FrameSpec, state: StreamState, block: torch.Tensor,
     axis, see ``init_state``).  The ring is [carry | block] (`rx.cpp:73-91`
     double-buffer update with the one-frame carry in front).  ``sync_mode``
     "gated" (production) gates the matched filter on the two-tone track;
-    "dense" correlates every ring lag (single channel only).
+    "dense" correlates every ring lag (single channel only).  Marks the
+    sync and extract stages, then ``demod_sig``'s; counts the slots
+    demodulated and the hits accepted (``io/trace.py``).
     """
     cfg = spec.cfg
     max_frames = max_frames or (cfg.rx_buf_size + 1)
     if sync_mode not in ("gated", "dense"):
         raise ValueError(f"sync_mode must be 'gated' or 'dense', got "
                          f"{sync_mode!r}")
+    trace.mark("sync", block)
     block = _as_complex(spec, block)
     lead = block.shape[:-1]
     carry = torch.where(state.carry_valid[..., None],
@@ -284,6 +290,9 @@ def process_buffer(spec: FrameSpec, state: StreamState, block: torch.Tensor,
         positions, valid = extract_hits(spec, score, state.next_min_pos,
                                         max_frames)
 
+    trace.count("slots_demodulated", max_frames * math.prod(lead))
+    trace.count_hits(valid)
+    trace.mark("extract", ring)
     # frame windows (invalid slots read position 0, masked by ``valid``)
     starts = torch.where(valid, positions - cfg.t2sin_size, 0)
     starts = torch.clamp(starts, 0, n - cfg.frame_len)

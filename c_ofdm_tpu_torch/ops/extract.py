@@ -162,6 +162,8 @@ def _lib() -> ctypes.CDLL:
     lib.c_ofdm_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_void_p]
     lib.c_ofdm_empty_launch.restype = ctypes.c_int
+    lib.c_ofdm_stage_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.c_ofdm_stage_mark.restype = ctypes.c_int
     lib.c_ofdm_cuda_error_string.argtypes = [ctypes.c_int]
     lib.c_ofdm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -327,6 +329,19 @@ def empty_launch(grid: tuple[int, int], threads: int,
         raise RuntimeError(f"empty kernel launch failed: "
                            f"{lib.c_ofdm_cuda_error_string(rc).decode()} "
                            f"(grid={grid}, threads={threads})")
+
+
+def stage_mark(stage: int, device: torch.device) -> None:
+    """Start ``stage_mark_kernel<stage>`` (one thread that does nothing)
+    on ``device``'s current stream: ``io/trace.py``'s mark of a stage
+    boundary in the device timeline.  Counted nowhere."""
+    lib = _lib()
+    rc = lib.c_ofdm_stage_mark(stage,
+                               torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"stage mark launch failed: "
+                           f"{lib.c_ofdm_cuda_error_string(rc).decode()} "
+                           f"(stage={stage})")
 
 
 for _fn in (extract_windows, extract_windows_single, extract_windows_multi):

@@ -43,6 +43,15 @@ and adds them again on every replay; the set-up runs (warm-up and capture)
 leave the counts as they found them.  A count therefore says how many times
 the path launched the kernel in calls made by its users.
 
+Tracing (``io/trace.py``).  With the recorder on, a call runs under an
+``entry`` span and is captured and replayed as a graph of its own (the
+tracing state is part of the key): its capture carries the stage marks and
+the sync's hit counter, and ends with the ``end`` mark; ``capture``,
+``copy_in``, ``launch`` and ``clone`` spans time its host path.  The
+recorder's work counts ride the launch counts.  With the recorder off, a
+call costs one flag test more than an untraced program, and its graphs
+are node for node those of one.
+
 K1's launch plan reads the addresses of its operands (the ``.cu``'s
 ``plan_window``); inside a graph those addresses are the static tensors'
 and the pool's, fixed for the life of the graph, so the plan that capture
@@ -58,6 +67,8 @@ import time
 from typing import Any, Callable, Dict, Hashable, NamedTuple, Sequence
 
 import torch
+
+from ..io import trace
 
 WARMUP = 2      # eager runs before a capture (torch.cuda.make_graphed_callables
 #                 runs 3; two fill every cache the port's steps have)
@@ -97,19 +108,20 @@ def _holding():
 
 
 def _counted():
-    """The kernel wrappers whose launch counts a graph replays."""
+    """The kernel wrappers whose launch counts a graph replays, and the
+    trace recorder's ``count``, whose work counts ride with them."""
     from ..ops import dft, extract
     return (extract.extract_windows, extract.extract_windows_single,
-            extract.extract_windows_multi, dft.dft)
+            extract.extract_windows_multi, dft.dft, trace.count)
 
 
 def launch_counts() -> Dict[tuple, int]:
-    """Every launch count of the kernel wrappers: {(wrapper, attribute,
-    class or None): count}."""
+    """Every launch count of the kernel wrappers, and the recorder's work
+    counts: {(wrapper, attribute, class or None): count}."""
     counts = {}
     for fn in _counted():
         for name, value in vars(fn).items():
-            if not name.endswith("launches"):
+            if not name.endswith(("launches", "work_counts")):
                 continue
             if isinstance(value, dict):
                 for k, v in value.items():
@@ -185,6 +197,19 @@ class Graph(NamedTuple):
         _add_counts(self.delta)
         return tree_map(torch.Tensor.clone, self.static_out)
 
+    def replay_traced(self, inputs: Sequence[torch.Tensor]):
+        """``replay`` under the recorder's ``copy_in``, ``launch`` and
+        ``clone`` spans."""
+        rec = trace.recorder
+        with rec.span("copy_in"):
+            for s, x in zip(self.static_in, inputs):
+                s.copy_(x)
+        with rec.span("launch"):
+            self.graph.replay()
+        with rec.span("clone"):
+            _add_counts(self.delta)
+            return tree_map(torch.Tensor.clone, self.static_out)
+
 
 class CapturedCall:
     """The graphs of one step, one per key.  ``name`` labels errors.  The
@@ -210,6 +235,8 @@ class CapturedCall:
         accumulators): the graph then updates them on every replay, and
         warm-up puts them back."""
         inputs = tuple(inputs)
+        if trace.recorder.on:
+            return self._traced(fn, inputs, tuple(restore), static)
         if not inputs or any(x.device.type != "cuda" for x in inputs):
             return fn(*inputs)
         key = (static, tensor_key(inputs))
@@ -218,6 +245,31 @@ class CapturedCall:
             g = self.graphs[key] = self._capture(key, fn, inputs,
                                                  tuple(restore))
         return g.replay(inputs)
+
+    def _traced(self, fn, inputs, restore, static):
+        """``__call__`` with the recorder on: an ``entry`` span around the
+        call, and on the card the graph of the traced key (``("traced",
+        static)``), whose capture ends with the ``end`` mark and adds to the
+        device's hit counter."""
+        rec = trace.recorder
+
+        def marked(*xs):
+            out = fn(*xs)
+            rec.mark("end", xs[0] if xs else None)
+            return out
+
+        with rec.entry(self.name):
+            if not inputs or any(x.device.type != "cuda" for x in inputs):
+                return marked(*inputs)
+            key = (("traced", static), tensor_key(inputs))
+            g = self.graphs.get(key)
+            if g is None:
+                label = f"{self.name} {[s for s, _, _ in key[1]]}"
+                with rec.span("capture", label):
+                    hits = rec.hit_counter(inputs[0].device)
+                    g = self.graphs[key] = self._capture(
+                        key, marked, inputs, restore + (hits,))
+            return g.replay_traced(inputs)
 
     def _capture(self, key, fn, inputs, restore) -> Graph:
         dev = inputs[0].device

@@ -248,3 +248,38 @@ def test_rx_profile_writes_a_chrome_trace(runs, tmp_path):
     assert any("mm" in n for n in names)
     assert _summary(runs / "port_profiled.json")["frames"] == \
         _summary(runs / "port_full.json")["frames"]
+
+
+def test_rx_profile_writes_the_program_spans_on_its_clock(runs, tmp_path):
+    """--profile turns the trace recorder on: the chrome trace holds the
+    program's spans (an entry span a captured call, the stage spans inside
+    the stream's) on the profiler's clock, around the operations the
+    profiler saw in them, and the summary the gated sync's counts: K and
+    max_frames a buffer, and every frame decoded as a hit."""
+    from c_ofdm_tpu_torch import ModemConfig
+    _port_rx(runs, "spans", runs / "jax_stream.bin",
+             ["--profile", str(tmp_path / "prof")])
+    events = json.loads((tmp_path / "prof" / "rxstream_trace.json")
+                        .read_text())["traceEvents"]
+    spans = [e for e in events
+             if e.get("cat") == "c_ofdm_tpu_torch" and e["ph"] == "X"]
+    feeds = [e for e in spans if e["name"] == "entry"
+             and e["args"]["label"] == "StreamingReceiver.feed"]
+    s = _summary(runs / "port_spans.json")
+    assert len(feeds) == s["buffers"] > 0
+    stages = [e["name"] for e in spans
+              if e["args"]["label"] == "stage"]
+    assert stages == ["sync", "extract", "recover", "dft",
+                      "equalize"] * s["buffers"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e["name"] == "aten::topk"]
+    assert len(ops) == s["buffers"] and all(
+        any(f["ts"] <= o["ts"] <= f["ts"] + f["dur"] for f in feeds)
+        for o in ops)
+    cfg = ModemConfig()
+    slots = cfg.rx_buf_size + 1
+    assert s["trace_counts"] == {
+        "regions_scored": s["buffers"] * (slots + cfg.t2_gate_slack),
+        "slots_demodulated": s["buffers"] * slots,
+        "hits_accepted": s["frames"]}
+    assert s["stage_device_us"]["replays"] == 0      # no card, no marks

@@ -14,6 +14,7 @@ so it also runs where jax is not installed:
 """
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -1500,3 +1501,160 @@ def test_sharded_stream_graph_equals_streaming_receiver(dev):
     for st, snap in states:
         _same(snap, st)
     assert int(sum(o.num_found.sum() for o in got)) > 0
+
+
+# ---- the trace recorder (io/trace.py) on the card
+
+STAGE_SPANS = ["sync", "extract", "recover", "dft", "equalize"]
+
+
+@pytest.fixture
+def recorder_off():
+    from c_ofdm_tpu_torch.io import trace
+    trace.disable()
+    trace.drain()
+    yield trace
+    trace.disable()
+    trace.drain()
+
+
+def _kernel_nodes(fn):
+    """{node kind: count} of fn(0) captured whole (chip_smoke.py)."""
+    from chip_smoke import graph_kernels
+    return graph_kernels(fn)
+
+
+def test_untraced_capture_holds_no_recorder_node(dev, recorder_off,
+                                                 monkeypatch):
+    """A stream buffer and a batch step captured with the recorder off have
+    the same nodes before the recorder was ever on, after it was on, and
+    with every recorder method made to raise (so no site ran one)."""
+    trace = recorder_off
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    block = _stream_blocks(8)[0].to(dev)
+    rxr = streaming.StreamingReceiver(spec, channels=8)
+    step = FlagshipStep(spec)
+    payload = torch.zeros((16, CFG.frame_bytes), dtype=torch.uint8,
+                          device=dev)
+
+    def nodes():
+        return (_kernel_nodes(lambda i: rxr._step(block)),
+                _kernel_nodes(lambda i: step._forward(payload)))
+
+    first = nodes()
+    trace.enable()
+    rxr.feed(block)
+    step(payload)
+    trace.disable()
+    trace.drain()
+    again = nodes()
+
+    def boom(*args, **kwargs):
+        raise AssertionError("the recorder ran while off")
+    for name in ("begin", "mark", "count_hits", "entry", "span",
+                 "hit_counter"):
+        monkeypatch.setattr(trace.Recorder, name, boom)
+    patched = nodes()
+    assert first == again == patched
+    assert first[0]["kernel"] > 50 and first[1]["kernel"] > 50
+
+
+def test_traced_capture_adds_the_marks_and_the_hit_counter(dev,
+                                                           recorder_off):
+    """With the recorder on, a captured stream buffer holds six more kernel
+    nodes (the marks) and the hit counter's (its sum and add captured
+    alone); a batch step the six marks; no other node changes."""
+    trace = recorder_off
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    block = _stream_blocks(8)[0].to(dev)
+    rxr = streaming.StreamingReceiver(spec, channels=8)
+    step = FlagshipStep(spec)
+    payload = torch.zeros((16, CFG.frame_bytes), dtype=torch.uint8,
+                          device=dev)
+
+    def stream(i):
+        rxr._step(block)
+        trace.mark("end", block)
+
+    def batch(i):
+        step._forward(payload)
+        trace.mark("end", payload)
+
+    off = (_kernel_nodes(stream), _kernel_nodes(batch))
+    trace.enable()
+    on = (_kernel_nodes(stream), _kernel_nodes(batch))
+    valid = torch.ones((8, rxr.max_frames), dtype=torch.bool, device=dev)
+    hits = _kernel_nodes(lambda i: trace.count_hits(valid))
+    assert set(hits) == {"kernel"} and 1 <= hits["kernel"] <= 3
+    for a, b, more in zip(off, on, (6 + hits["kernel"], 6)):
+        assert b == dict(a, kernel=a["kernel"] + more), (a, b)
+
+
+def test_traced_replay_equals_untraced_and_records(dev, recorder_off,
+                                                  tmp_path):
+    """Four buffers of 8 channels fed traced and untraced from the same
+    state: equal outputs and state; the traced graph is its own key; each
+    traced call is an entry span holding copy_in, launch and clone (the
+    first also capture, labelled with the key); the work counts replay
+    exactly (K x C and max_frames x C a buffer) and the hit count equals
+    the valid slots; the profiler's device trace shows each replay's six
+    marks in order, split by stage_split with none dropped."""
+    from torch.profiler import ProfilerActivity, profile
+    trace = recorder_off
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    blocks = _stream_blocks(8, S=4).to(dev)
+    plain = streaming.StreamingReceiver(spec, channels=8)
+    want = [plain.feed(b) for b in blocks]
+    rxr = streaming.StreamingReceiver(spec, channels=8)
+    trace.enable()
+    got = [rxr.feed(blocks[0])]                # the capture
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got += [rxr.feed(b) for b in blocks[1:]]
+        torch.cuda.synchronize()
+    recorded = trace.drain()
+    trace.disable()
+    for w, g in zip(want, got):
+        _same(w, g)
+    _same(plain.state, rxr.state)
+    (static, _), = rxr.graphs.graphs
+    assert static[0] == "traced"
+    spans = recorded["spans"]
+    entries = [i for i, s in enumerate(spans) if s["name"] == "entry"]
+    assert [spans[i]["call"] for i in entries] == [0, 1, 2, 3]
+    for n, i in enumerate(entries):
+        kids = [s["name"] for s in spans if s["parent"] == i]
+        assert kids == (["capture"] if n == 0 else []) + [
+            "copy_in", "launch", "clone"]
+    cap = next(s for s in spans if s["name"] == "capture")
+    assert cap["label"].startswith("StreamingReceiver.feed [(8, 240640)]")
+    K = rxr.max_frames + CFG.t2_gate_slack
+    assert recorded["counts"] == {
+        "regions_scored": 4 * 8 * K,
+        "slots_demodulated": 4 * 8 * rxr.max_frames,
+        "hits_accepted": int(sum(int(o.valid.sum()) for o in got))}
+    assert recorded["counts"]["hits_accepted"] > 0
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    split = trace.stage_split(
+        json.loads((tmp_path / "t.json").read_text())["traceEvents"])
+    assert split["replays"] == 3 and split["dropped"] == 0, split
+    assert set(split["busy_us"]) == set(STAGE_SPANS)
+    assert all(v > 0 for v in split["busy_us"].values())
+
+
+def test_block_stager_spans(dev, recorder_off):
+    """Each staged block is a slot_wait, a fill and an h2d span, in order;
+    the staged blocks equal the host blocks."""
+    from c_ofdm_tpu_torch.apps.rxstream import BlockStager
+    trace = recorder_off
+    stage = BlockStager(dev)
+    rng = np.random.default_rng(3)
+    host = [rng.integers(-2000, 2000, (4096, 2), dtype=np.int16)
+            for _ in range(3)]
+    trace.enable()
+    got = [stage(h).cpu().numpy() for h in host]
+    spans = trace.drain()["spans"]
+    assert [s["name"] for s in spans] == ["slot_wait", "fill", "h2d"] * 3
+    assert all(s["parent"] is None and s["start_ns"] <= s["end_ns"]
+               for s in spans)
+    for g, h in zip(got, host):
+        np.testing.assert_array_equal(g, h)
