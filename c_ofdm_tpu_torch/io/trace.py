@@ -30,13 +30,14 @@ records two kinds of events, off unless ``enable()`` is called:
   stage (``stage_split``).  The tracing state is part of a graph's key: an
   untraced capture holds no mark.
 
-and three counts of the gated sync's work: ``regions_scored`` (candidate
-regions matched-filtered) and ``slots_demodulated`` (frame slots
-demodulated), host counts that graphs replay as they replay the kernels'
-launch counts (``count.work_counts``, read by
+and four counts of the sync's work: ``regions_scored`` (the gated sync's
+candidate regions matched-filtered), ``slots_demodulated`` (frame slots
+demodulated) and ``mf_chunks`` (the overlap-save matched filter's chunks,
+rows x chunks a row), host counts that graphs replay as they replay the
+kernels' launch counts (``count.work_counts``, read by
 ``utils/graphs.py::launch_counts``),
-and ``hits_accepted`` (frames the sync accepted), device data summed into a
-device int64 counter a device and read once by ``drain()``.
+and ``hits_accepted`` (frames the gated sync accepted), device data summed
+into a device int64 counter a device and read once by ``drain()``.
 
 When the recorder is off, each site costs one flag test: no allocation, no
 clock read, no device work.
@@ -55,7 +56,7 @@ from typing import Dict, List
 import torch
 
 STAGES = ("sync", "extract", "recover", "dft", "equalize", "end")
-WORK_COUNTS = ("regions_scored", "slots_demodulated")
+WORK_COUNTS = ("regions_scored", "slots_demodulated", "mf_chunks")
 
 
 class StageTrace:
@@ -122,7 +123,7 @@ class Recorder:
     def drain(self) -> dict:
         """Hand out and forget what was recorded: {"spans": [{name,
         start_ns, end_ns, parent (an index into the list or None), call,
-        label}], "counts": {regions_scored, slots_demodulated,
+        label}], "counts": {regions_scored, slots_demodulated, mf_chunks,
         hits_accepted}}.  Spans still open end now; call ids start again
         from 0.  Reads the device hit
         counters (one synchronisation a device)."""

@@ -3,12 +3,12 @@
 Counterpart of ``c_ofdm_tpu/models/frame.py``.  The JAX package keeps numpy
 constants that XLA bakes into each executable.  Here the same numpy constants
 are kept, and the device constants derived from them (DFT bases incl. the
-hop track's half-block basis and sign, Toeplitz band, overlap-save filter
-spectrum, conjugated preamble, preamble points, and the partial-DFT bases and
-pilot waveform of the backends that read them) are built once per (spec,
-device, dtype) and held as tensors in ``FrameSpec.tensors``;
-``models.modem.FlagshipStep`` and ``models.streaming.StreamingReceiver``
-register them as buffers.
+hop track's half-block basis and sign, Toeplitz band, the matched filter's
+spectrum at each FFT size it takes, conjugated preamble, preamble points,
+and the partial-DFT bases and pilot waveform of the backends that read
+them) are built once per (spec, device, dtype) and held as tensors in
+``FrameSpec.tensors``; ``models.modem.FlagshipStep`` and
+``models.streaming.StreamingReceiver`` register them as buffers.
 """
 
 from __future__ import annotations
@@ -132,10 +132,9 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         "t2_hop_sign": real(hop_sign),
         "mf_band": pair(sync._toeplitz_mf_np(arrays["matched_filter"],
                                              cfg.pr_sin_len)),
-        "mf_fft_os": cplx(sync._mf_spectrum_np(arrays["matched_filter"],
-                                               sync.OVERLAP_SAVE_LEN)),
-        sync.mf_spectrum_key(8192): cplx(sync._mf_spectrum_np(
-            arrays["matched_filter"], 8192)),
+        **{sync.mf_spectrum_key(m): cplx(sync._mf_spectrum_np(
+            arrays["matched_filter"], m))
+           for m in sync.mf_spectrum_sizes(cfg.pr_sin_len)},
         "t2_mask": real(arrays["t2_mask"]),
         "cfo_lo": torch.tensor([lo for lo, _ in segs], dtype=torch.int64,
                                device=device),

@@ -14,12 +14,16 @@ suppression.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..io import trace
 from . import fft as fftops
 
-# chunk length of the overlap-save matched filter (long captures)
+# the shortest chunk of the overlap-save matched filter (long captures);
+# ``overlap_save_len`` widens it for filters of more than 1024 taps
 OVERLAP_SAVE_LEN = 4096
 
 # crossings below this fraction of the search window's best score are
@@ -261,11 +265,26 @@ def _mf_spectrum_np(mf: np.ndarray, m: int) -> np.ndarray:
     return np.conj(np.fft.fft(np.conj(mf_pad)))
 
 
+def overlap_save_len(L: int) -> int:
+    """The overlap-save chunk for an L-tap filter: at least 4L points, so
+    that a chunk yields over 3L lags (``hop = C - L + 1``), and never under
+    ``OVERLAP_SAVE_LEN``: 4096 up to L = 1024, 8192 at 2048, 16384 at
+    4096."""
+    return max(OVERLAP_SAVE_LEN, _next_pow2(4 * L))
+
+
+def mf_spectrum_sizes(L: int) -> tuple:
+    """Every FFT size ``matched_filter_scores`` takes with an L-tap filter:
+    the single-FFT branch's next_pow2(n + L) <= 8192 for n > 2048, and the
+    overlap-save chunk (one size when they meet, as 8192 at L = 2048)."""
+    single = {m for m in (4096, 8192) if m > L + 2048}
+    return tuple(sorted(single | {overlap_save_len(L)}))
+
+
 def mf_spectrum_key(m: int) -> str:
-    """The ``FrameSpec.tensors`` entry holding the m-point spectrum: m is
-    4096 (the overlap-save chunk, also the single-FFT size up to n + L =
-    4096) or 8192, the only two sizes ``matched_filter_scores`` takes."""
-    return "mf_fft_os" if m == OVERLAP_SAVE_LEN else f"mf_fft_{m}"
+    """The ``FrameSpec.tensors`` entry holding the m-point spectrum (m in
+    ``mf_spectrum_sizes``)."""
+    return f"mf_fft_{m}"
 
 
 def _corr_fft(x: torch.Tensor, mf_f: torch.Tensor, m: int) -> torch.Tensor:
@@ -282,7 +301,11 @@ def matched_filter_scores(spec, x: torch.Tensor) -> torch.Tensor:
 
     Three branches, as in the JAX package: the banded-Toeplitz product for
     short windows (n <= 2048), one FFT pair for m = next_pow2(n + L) <= 8192,
-    and 4096-point overlap-save chunks beyond that (``torch.fft``)."""
+    and overlap-save chunks beyond that (``torch.fft``).  The chunk is
+    ``overlap_save_len(L)`` points, where the JAX package takes 4096 at
+    every L: the same 4096 up to L = 1024; at L = 4096 a chunk of 16384
+    yields 12289 lags, not one.  The recorder's ``mf_chunks`` counts the
+    chunks transformed (rows x chunks a row)."""
     n = x.shape[-1]
     L = spec.cfg.pr_sin_len
     m = _next_pow2(n + L)
@@ -292,14 +315,13 @@ def matched_filter_scores(spec, x: torch.Tensor) -> torch.Tensor:
         corr = _corr_fft(x, spec.tensors[mf_spectrum_key(m)],
                          m)[..., :n].abs()
     else:
-        C = OVERLAP_SAVE_LEN
+        C = overlap_save_len(L)
         hop = C - L + 1
         nchunks = -(-n // hop)
-        xp = torch.nn.functional.pad(x, (0, nchunks * hop + L - n))
-        # the first nchunks windows: at L = C (hop 1) the padded signal
-        # holds one window more
-        chunks = xp.unfold(-1, C, hop)[..., :nchunks, :]   # [..., nchunks, C]
-        cc = _corr_fft(chunks, spec.tensors["mf_fft_os"], C)[..., :hop]
+        xp = torch.nn.functional.pad(x, (0, nchunks * hop + L - 1 - n))
+        chunks = xp.unfold(-1, C, hop)                 # [..., nchunks, C]
+        trace.count("mf_chunks", nchunks * math.prod(x.shape[:-1]))
+        cc = _corr_fft(chunks, spec.tensors[mf_spectrum_key(C)], C)[..., :hop]
         corr = cc.reshape(*x.shape[:-1], nchunks * hop)[..., :n].abs()
     e = x.abs() ** 2
     ce = torch.nn.functional.pad(torch.cumsum(e, dim=-1), (1, 0))

@@ -10,9 +10,12 @@ cluster (``dft._cluster_split``: 12 blocks of 6912 points); its plain
 version ``dft_cluster_ref`` runs here.  The port under ``fft_backend=
 "pallas"`` is held against the JAX package under ``xla``.
 
-The matched filter here is 4096 taps long, the overlap-save chunk's own
-length, so each chunk yields one lag (hop 1); the port's chunking is held
-against the JAX package's at that edge too.
+The matched filter here is 4096 taps long.  The JAX package's overlap-save
+chunk is 4096 points at every filter length, so each of its chunks yields
+one lag (hop 1); the port sizes its chunk from the filter
+(``sync.overlap_save_len``: 16384 points, 12289 lags a chunk), so the
+sync's 8704-lag regions take one chunk a row.  The port's chunks are held
+against the JAX package's hop 1, within one chunk and across two seams.
 
 Tolerances: transmit within 2e-6·max|x| (two float32 inverse DFTs of
 ~1.7e-7·max|x| error each); the matched-filter scores within 1e-5 of the
@@ -106,7 +109,8 @@ def test_broadcast_geometry():
 
 def test_broadcast_matched_filter_at_one_lag_a_chunk_matches_jax():
     """matched_filter_scores with a 4096-tap filter on 6000 lags (the
-    overlap-save branch, 4096-point chunks of one lag each) equals the JAX
+    overlap-save branch: one 16384-point chunk a row in the port, 6000
+    4096-point chunks of one lag each in the JAX package) equals the JAX
     package's within 1e-5 of the largest score."""
     js, *_ = _jax_run()
     rng = np.random.default_rng(7)
@@ -117,6 +121,32 @@ def test_broadcast_matched_filter_at_one_lag_a_chunk_matches_jax():
     assert got.shape == want.shape == x.shape
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+def test_broadcast_matched_filter_across_chunk_seams_matches_jax():
+    """The same on 30000 lags, where the port's three 12289-lag chunks
+    meet at two seams (lags 12289 and 24578) and a preamble is planted at
+    the first: within 1e-5 of the largest of the JAX package's scores,
+    which it computes here on 5000-lag pieces of the row (at hop 1 each
+    lag is its own chunk, so a piece runs the same 4096-point chunks as
+    the whole row), the planted lag the largest."""
+    js, *_ = _jax_run()
+    L, n, piece = 4096, 30000, 5000
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((1, n))
+         + 1j * rng.standard_normal((1, n))) * 4
+    x[:, 12289:12289 + L] += 100 * np.conj(js.matched_filter)
+    x = x.astype(np.complex64)
+    want = np.concatenate(
+        [np.asarray(jsync.matched_filter_scores(
+            js, jnp.asarray(x[:, a:a + piece + L - 1])))[:, :piece]
+         for a in range(0, n, piece)], axis=-1)
+    got = tsync.matched_filter_scores(_spec(), torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == x.shape
+    assert tsync.overlap_save_len(L) - L + 1 == 12289
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert np.argmax(want[0]) == np.argmax(got[0]) == 12289
 
 
 def test_broadcast_transmit_pallas_matches_jax_xla():

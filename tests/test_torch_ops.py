@@ -401,6 +401,46 @@ def test_matched_filter_branches_match(n):
         tsync.matched_filter_scores(ts, _t(x)).numpy(), rtol=0, atol=ATOL128)
 
 
+@pytest.mark.parametrize("L,C,sizes", [(128, 4096, (4096, 8192)),
+                                        (1024, 4096, (4096, 8192)),
+                                        (2048, 8192, (8192,)),
+                                        (4096, 16384, (8192, 16384))])
+def test_overlap_save_chunk_from_the_filter_length(L, C, sizes):
+    """The overlap-save chunk is 4096 up to a 1024-tap filter and
+    next_pow2(4L) beyond; the spec holds one spectrum for each FFT size
+    the matched filter takes, one entry where the single-FFT size and the
+    chunk meet (8192 at L = 2048)."""
+    assert tsync.overlap_save_len(L) == C
+    assert tsync.mf_spectrum_sizes(L) == sizes
+    assert C - L + 1 > 3 * L
+    cfg = tconfig.ModemConfig(pr_sin_len=L, fft_size=max(512, 4 * L))
+    ts = tframe.make_frame_spec(cfg, torch.complex128, device=CPU,
+                                fft_backend="xla")
+    assert {k for k in ts.tensors if k.startswith("mf_fft")} == {
+        tsync.mf_spectrum_key(m) for m in sizes}
+
+
+@pytest.mark.parametrize("L", [1024, 2048])
+def test_matched_filter_long_filters_match_jax(L):
+    """The overlap-save branch with 1024 and 2048 taps on 20000 lags, in
+    complex128: the port's chunk (4096 and 8192 points: 5 and 3 chunks a
+    row) against the JAX package's 4096-point chunks (6 and 10), torch.fft
+    against jnp.fft."""
+    kw = dict(pr_sin_len=L, fft_size=4 * L)
+    js = jframe.make_frame_spec(jconfig.ModemConfig(**kw),
+                                dtype=jnp.complex128, fft_backend="xla")
+    ts = tframe.make_frame_spec(tconfig.ModemConfig(**kw), torch.complex128,
+                                device=CPU, fft_backend="xla")
+    rng = np.random.default_rng(L)
+    x = 4 * _crandn(rng, (2, 20000))
+    x[:, 9000:9000 + L] += 100 * np.conj(js.matched_filter)
+    want = _n(jsync.matched_filter_scores(js, jnp.asarray(x)))
+    np.testing.assert_allclose(
+        want, tsync.matched_filter_scores(ts, _t(x)).numpy(), rtol=0,
+        atol=ATOL128)
+    assert want[:, 9000].min() > 0.2
+
+
 def test_sliding_max_and_local_suppression_match():
     rng = np.random.default_rng(16)
     track = rng.uniform(0, 1, (3, 500))

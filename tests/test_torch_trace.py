@@ -1,7 +1,8 @@
 """The port's trace recorder (``io/trace.py``) on the CPU: off, it records
 nothing and the steps run the same operations; on, its spans nest under
 their entry call on ``time.time_ns``, the gated sync's work counts are exact
-and its hit count equals the frames the outputs mark valid; the stage
+and its hit count equals the frames the outputs mark valid, and the
+overlap-save matched filter counts its chunks; the stage
 reader splits a chrome trace's replays between their marks; and the spans
 land in a profiler trace on its own clock.  The graph-side spans, the marks
 in a captured graph and the replayed counts need the card
@@ -19,6 +20,7 @@ from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
 from c_ofdm_tpu_torch.io import trace
 from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
+from c_ofdm_tpu_torch.ops import sync
 from c_ofdm_tpu_torch.utils import graphs
 
 CFG = ModemConfig()
@@ -124,7 +126,8 @@ def test_off_records_nothing_and_runs_the_same_ops(blocks, monkeypatch):
     assert sorted(map(str, extra)) == ["aten.add_.Tensor", "aten.sum.default"]
     monkeypatch.undo()
     assert trace.drain() == {"spans": [], "counts": {
-        "regions_scored": 0, "slots_demodulated": 0, "hits_accepted": 0}}
+        "regions_scored": 0, "slots_demodulated": 0, "mf_chunks": 0,
+        "hits_accepted": 0}}
 
 
 def test_spans_nest_under_their_entry_call():
@@ -173,6 +176,25 @@ def test_work_counts_and_hits_on_the_cpu(blocks):
     keys = graphs.launch_counts()
     for name in trace.WORK_COUNTS:
         assert keys[(trace.count, "work_counts", name)] == 0
+
+
+@pytest.mark.parametrize("L,rows,n,chunks", [(4096, 20, 8704, 1),
+                                             (128, 2, 30080, 8)])
+def test_matched_filter_counts_its_chunks(L, rows, n, chunks):
+    """With the recorder on, one overlap-save matched filter counts rows x
+    chunks a row: one 16384-point chunk a row at the broadcast sync's
+    [20, 8704] and 4096 taps (12289 lags a chunk), ceil(30080 / 3969) = 8
+    at the stock 128 taps; nothing with the recorder off."""
+    cfg = ModemConfig(pr_sin_len=L, fft_size=max(512, 4 * L))
+    spec = make_frame_spec(cfg, torch.complex64, device="cpu",
+                           fft_backend="xla")
+    x = torch.randn((rows, n), dtype=torch.complex64)
+    assert chunks == -(-n // (sync.overlap_save_len(L) - L + 1))
+    sync.matched_filter_scores(spec, x)
+    assert trace.drain()["counts"]["mf_chunks"] == 0
+    trace.enable()
+    sync.matched_filter_scores(spec, x)
+    assert trace.drain()["counts"]["mf_chunks"] == rows * chunks
 
 
 def _event(name, ts, dur, cat="kernel"):
