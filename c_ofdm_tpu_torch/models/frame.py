@@ -104,7 +104,8 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
     ``tx_pilot_time`` for the matmul backends, ``cfo_basis`` for all but
     ``xla`` and ``ct*`` up to a 32768-point preamble; the bin gathers
     (``pilot_idx``, ``data_idx``, ``tx_bin_src``) for the other backends on
-    a layout that is not the canonical one.  No step makes a constant from
+    a layout that is not the canonical one.  The coarse CFO's window index
+    ``cfo_win_idx`` points into whichever spectrum the backend makes.  No step makes a constant from
     host data while it runs: a CUDA-graph capture refuses the host-to-device
     copy (see ``utils/graphs.py``)."""
     rdt = real_dtype(dtype)
@@ -138,6 +139,9 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         "t2_mask": real(arrays["t2_mask"]),
         "cfo_lo": torch.tensor([lo for lo, _ in segs], dtype=torch.int64,
                                device=device),
+        "cfo_win_idx": torch.from_numpy(cfo.cfo_window_index(
+            segs, cfg.preamble_len, cfo.uses_partial_spectrum(
+                fft_backend, cfg.preamble_len))).to(device),
         "t2_burst": cplx(arrays["t2_burst"]),
         "preamble_time": cplx(arrays["preamble_time"]),
         "pre_conj": cplx(np.conj(arrays["preamble_time"])),

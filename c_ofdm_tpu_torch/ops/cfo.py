@@ -11,9 +11,12 @@ Shapes: ``sig`` is [..., n] with leading batch dims; all returns broadcast.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..io import trace
 from . import fft as fftops
 from .modulation import real_dtype
 
@@ -33,6 +36,26 @@ def cfo_basis(preamble_len: int, segments, device,
     rows = (shifted + (preamble_len + 1) // 2) % preamble_len
     return fftops.dft_basis(preamble_len, rows, transpose=True,
                             device=device, rdt=rdt)
+
+
+def cfo_window_index(segments, preamble_len: int,
+                     partial: bool) -> np.ndarray:
+    """[n_windows, w_max] int64: row i holds the bins of window i of
+    ``segments`` as columns of the spectrum ``pilot_freq_shift`` makes:
+    the partial product's concatenated windows where ``partial``, else the
+    unshifted FFT, in which fftshifted bin j is bin (j + ceil(size/2)) %
+    size.  A window narrower than w_max repeats its first bin: a repeat of
+    position 0 never wins argmax's first maximum, so no mask is needed."""
+    w_max = max(hi - lo for lo, hi in segments)
+    rows = []
+    off = 0
+    for lo, hi in segments:
+        cols = np.arange(off, off + hi - lo) if partial else np.arange(lo, hi)
+        rows.append(np.concatenate([cols, np.full(w_max - len(cols),
+                                                  cols[0])]))
+        off += hi - lo
+    idx = np.stack(rows).astype(np.int64)
+    return idx if partial else (idx + (preamble_len + 1) // 2) % preamble_len
 
 
 def uses_partial_spectrum(backend: str, preamble_len: int) -> bool:
@@ -55,40 +78,35 @@ def uses_partial_spectrum(backend: str, preamble_len: int) -> bool:
 def pilot_freq_shift(spec, preamble_sig: torch.Tensor) -> torch.Tensor:
     """Coarse CFO (cycles/sample) from pilot peaks of the fftshifted preamble
     spectrum (`OFDM/Frame.hpp:285-337`).  preamble_sig [..., preamble_len]
-    -> [...].  Where ``uses_partial_spectrum`` is false: the full
-    forward FFT (``torch.fft``, whatever the spec's backend), fftshifted,
-    one argmax per window.  Others: one full-precision partial-DFT product
-    onto only the bins the peak-search windows inspect."""
+    -> [...].  The spectrum is one full-precision partial-DFT product onto
+    only the bins the peak-search windows inspect where
+    ``uses_partial_spectrum``, else the full forward FFT (``torch.fft``,
+    whatever the spec's backend), left unshifted.  One search then serves
+    every window: one gather of the spectrum by the spec's constant
+    ``cfo_win_idx`` (``cfo_window_index``) into [..., n_windows, w_max],
+    its magnitude, and one argmax, which returns the first maximum, as
+    jnp.argmax does.  The recorder's ``cfo_windows`` counts the windows
+    searched (rows x windows)."""
     size = spec.cfg.preamble_len
-    segs = spec.cfo_segments
+    x = preamble_sig[..., :size]
     if uses_partial_spectrum(spec.fft_backend, size):
-        amp = fftops.complex_matmul(preamble_sig[..., :size],
-                                    spec.tensors["cfo_basis"]).abs()
-        peaks = []
-        off = 0
-        for lo, hi in segs:
-            peaks.append(lo + torch.argmax(amp[..., off:off + (hi - lo)],
-                                           dim=-1))
-            off += hi - lo
+        full = fftops.complex_matmul(x, spec.tensors["cfo_basis"])
     else:
-        amp = torch.fft.fftshift(fftops.fft_fwd(preamble_sig[..., :size]),
-                                 dim=-1).abs()
-        # argmax returns the first maximum, as jnp.argmax does
-        peaks = [lo + torch.argmax(amp[..., lo:hi], dim=-1)
-                 for lo, hi in segs]
-    pk = torch.stack(peaks, dim=-1)                     # [..., n_windows]
+        full = fftops.fft_fwd(x)
+    idx = spec.tensors["cfo_win_idx"]                   # [n_windows, w_max]
+    trace.count("cfo_windows", idx.shape[0] * math.prod(x.shape[:-1]))
+    amp = full.index_select(-1, idx.flatten()).unflatten(-1, idx.shape).abs()
+    delta = torch.argmax(amp, dim=-1)       # [..., n_windows]: peak - lo
     tol = spec.cfg.cfo_outlier_bins
     if tol > 0:
         # beyond the reference: replace any per-window offset deviating more
         # than tol bins from the median offset with the median (at low SNR a
         # single window's argmax on a noise bin corrupts the mean).  Clean
         # windows agree within ~2 bins, so nothing is rejected there.
-        lo_vec = spec.tensors["cfo_lo"]
-        delta = pk - lo_vec
         med = torch.sort(delta, dim=-1).values[..., delta.shape[-1] // 2]
         keep = torch.abs(delta - med[..., None]) <= tol
-        pk = torch.where(keep, pk, lo_vec + med[..., None])
-    total = pk.sum(dim=-1)
+        delta = torch.where(keep, delta, med[..., None])
+    total = (spec.tensors["cfo_lo"] + delta).sum(dim=-1)
     # the reference divides by num_pilot_subc (== number of used windows)
     shift = total.to(amp.dtype) / spec.cfg.num_pilot_subc
     return (shift - size / 2) / size

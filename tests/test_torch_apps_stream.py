@@ -281,5 +281,6 @@ def test_rx_profile_writes_the_program_spans_on_its_clock(runs, tmp_path):
     assert s["trace_counts"] == {
         "regions_scored": s["buffers"] * (slots + cfg.t2_gate_slack),
         "slots_demodulated": s["buffers"] * slots, "mf_chunks": 0,
+        "cfo_windows": s["buffers"] * slots * cfg.num_pilot_subc,
         "hits_accepted": s["frames"]}
     assert s["stage_device_us"]["replays"] == 0      # no card, no marks

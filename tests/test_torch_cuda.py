@@ -736,6 +736,53 @@ def _profile_broadcast_receive(dev, path, calls=10) -> dict:
             "card": torch.cuda.get_device_name(dev)}
 
 
+def _profile_broadcast_stages(dev, path, calls=10) -> dict:
+    """Device ms a call by stage of the traced broadcast receive's replays
+    (``trace.stage_split`` of a profile of ``calls`` replays written to
+    ``path``), and the replays' ``cfo_windows`` a call."""
+    from c_ofdm_tpu_torch.io import trace
+    step, caps, _, _ = _broadcast_receive(dev)
+    trace.enable()
+    step.receive(caps)                      # the traced capture
+    torch.cuda.synchronize()
+    trace.drain()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step.receive(caps)
+        torch.cuda.synchronize()
+    counts = trace.drain()["counts"]
+    trace.disable()
+    prof.export_chrome_trace(str(path))
+    split = trace.stage_split(json.loads(path.read_text())["traceEvents"])
+    n = max(split["replays"], 1)
+    return {"replays": split["replays"], "dropped": split["dropped"],
+            "stage_ms_a_call": {k: v / n / 1e3
+                                for k, v in split["busy_us"].items()},
+            "marks_ms_a_call": split["marks_us"] / n / 1e3,
+            "cfo_windows_a_call": counts["cfo_windows"] / calls,
+            "card": torch.cuda.get_device_name(dev)}
+
+
+def test_broadcast_receive_recovers_in_one_search(dev, tmp_path):
+    """A traced, captured broadcast receive at the benchmark cell's shape
+    ([20, 280832]): its recover stage (between the stage marks) takes
+    under 0.6 ms of device time a call, and each replay counts
+    ``cfo_windows`` 12000 (20 rows x 600 windows).  Profiled in a process
+    of its own, as the test below; every stage's time is printed."""
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run(
+        [sys.executable, __file__, "profile-broadcast-stages",
+         str(tmp_path)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    print(json.dumps({"broadcast_stages": got}))
+    assert got["replays"] >= 5 and got["cfo_windows_a_call"] == 12000, got
+    assert got["stage_ms_a_call"]["recover"] < 0.6, got
+
+
 def test_broadcast_receive_replays_one_chunk_a_row(dev, recorder_off,
                                                   tmp_path):
     """A captured broadcast receive at the benchmark cell's shape: traced
@@ -765,6 +812,97 @@ def test_broadcast_receive_replays_one_chunk_a_row(dev, recorder_off,
     assert out.returncode == 0, out.stderr[-4000:]
     print(json.dumps({"broadcast_receive": json.loads(
         out.stdout.splitlines()[-1])}))
+
+
+def _cfo_tail(spec, pk, rdt):
+    """The coarse CFO from its per-window peaks pk [..., windows]: the
+    median rule and the mean, as ``ops/cfo.py`` computes them."""
+    size = spec.cfg.preamble_len
+    lo = spec.tensors["cfo_lo"]
+    delta = pk - lo
+    med = torch.sort(delta, dim=-1).values[..., delta.shape[-1] // 2]
+    keep = torch.abs(delta - med[..., None]) <= spec.cfg.cfo_outlier_bins
+    pk = torch.where(keep, pk, lo + med[..., None])
+    shift = pk.sum(dim=-1).to(rdt) / spec.cfg.num_pilot_subc
+    return (shift - size / 2) / size
+
+
+def _cfo_spectrum(spec, x):
+    """The spectrum the coarse CFO searches: the partial product onto the
+    windows' bins where the spec holds its basis, else the full FFT."""
+    if "cfo_basis" in spec.tensors:
+        return fft.complex_matmul(x, spec.tensors["cfo_basis"])
+    return fft.fft_fwd(x)
+
+
+def _shift_by_window_loop(spec, x):
+    """The coarse CFO searched window by window, as the JAX package does:
+    one argmax and one add a window over the spectrum's magnitude (the
+    partial product's concatenated windows, or the fftshifted FFT)."""
+    amp = _cfo_spectrum(spec, x).abs()
+    segs = spec.cfo_segments
+    if "cfo_basis" in spec.tensors:
+        offs = np.cumsum([0] + [hi - lo for lo, hi in segs])
+        segs = [(lo, hi, o) for (lo, hi), o in zip(segs, offs)]
+    else:
+        amp = torch.fft.fftshift(amp, dim=-1)
+        segs = [(lo, hi, lo) for lo, hi in segs]
+    pk = torch.stack([lo + torch.argmax(amp[..., o:o + hi - lo], dim=-1)
+                      for lo, hi, o in segs], dim=-1)
+    return _cfo_tail(spec, pk, amp.dtype)
+
+
+@pytest.mark.parametrize("geometry", ["broadcast", "stock"])
+def test_coarse_cfo_one_search_on_card(dev, recorder_off, geometry):
+    """The coarse CFO as a captured call, at the broadcast cell's recovery
+    input, [20, 92160] (600 windows of 90 bins in the FFT under pallas),
+    and at the stock geometry, [256, 640] (8 windows of 41 bins in the
+    partial product under matmul); 4 rows zero, the others preambles with
+    CFO and noise.  Its shift equals the window loop's bit for bit, each
+    replay counts ``cfo_windows`` rows x windows, and its graph holds at
+    most 6 kernel nodes beside the spectrum's and the median-and-mean
+    tail's (the node counts, the loop's among them, are printed)."""
+    from c_ofdm_tpu_torch.ops import cfo
+    from c_ofdm_tpu_torch.utils import graphs
+    trace = recorder_off
+    cfg, backend, rows, windows, width = {
+        "broadcast": (BROADCAST, "pallas", 20, 600, 90),
+        "stock": (CFG, "matmul", 256, 8, 41)}[geometry]
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend=backend)
+    assert ("cfo_basis" in spec.tensors) == (geometry == "stock")
+    rng = np.random.default_rng(cfg.preamble_len)
+    k = np.arange(cfg.preamble_len)
+    f = rng.uniform(-1e-4, 1e-4, (rows, 1))
+    x = (10 * spec.preamble_time * np.exp(2j * np.pi * f * k)
+         + 0.5 * (rng.standard_normal((rows, cfg.preamble_len))
+                  + 1j * rng.standard_normal((rows, cfg.preamble_len))))
+    x[rows - 4:] = 0
+    x = torch.from_numpy(x.astype(np.complex64)).to(dev)
+    shift = graphs.jit(cfo.pilot_freq_shift)
+    trace.enable()
+    got = [shift(spec, x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert trace.drain()["counts"]["cfo_windows"] == 3 * rows * windows
+    trace.disable()
+    want = _shift_by_window_loop(spec, x)
+    for g in got:
+        assert torch.equal(g, want)
+    pk = spec.tensors["cfo_lo"] + torch.randint(
+        0, width, (rows, windows), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(windows))
+    nodes = {
+        "pilot_freq_shift": _kernel_nodes(
+            lambda i: cfo.pilot_freq_shift(spec, x)),
+        "spectrum": _kernel_nodes(lambda i: _cfo_spectrum(spec, x)),
+        "tail": _kernel_nodes(lambda i: _cfo_tail(spec, pk, torch.float32)),
+        "window_loop": _kernel_nodes(
+            lambda i: _shift_by_window_loop(spec, x)),
+    }
+    print(json.dumps({"coarse_cfo_nodes": {geometry: nodes}}))
+    search = (nodes["pilot_freq_shift"]["kernel"]
+              - nodes["spectrum"]["kernel"] - nodes["tail"]["kernel"])
+    assert search <= 6, nodes
 
 
 _FOURSTEP_CASES = {
@@ -1759,6 +1897,7 @@ def test_traced_replay_equals_untraced_and_records(dev, recorder_off,
     assert recorded["counts"] == {
         "regions_scored": 4 * 8 * K,
         "slots_demodulated": 4 * 8 * rxr.max_frames, "mf_chunks": 0,
+        "cfo_windows": 4 * 8 * rxr.max_frames * CFG.num_pilot_subc,
         "hits_accepted": int(sum(int(o.valid.sum()) for o in got))}
     assert recorded["counts"]["hits_accepted"] > 0
     prof.export_chrome_trace(str(tmp_path / "t.json"))
@@ -1793,4 +1932,9 @@ if __name__ == "__main__":
     # test_broadcast_receive_replays_one_chunk_a_row, as one JSON line
     if sys.argv[1:2] == ["profile-broadcast"]:
         print(json.dumps(_profile_broadcast_receive(
+            torch.device("cuda", 0), Path(sys.argv[2]) / "t.json")))
+    # python tests/test_torch_cuda.py profile-broadcast-stages DIR: the
+    # profile of test_broadcast_receive_recovers_in_one_search
+    if sys.argv[1:2] == ["profile-broadcast-stages"]:
+        print(json.dumps(_profile_broadcast_stages(
             torch.device("cuda", 0), Path(sys.argv[2]) / "t.json")))

@@ -532,3 +532,137 @@ def test_cfo_outlier_rejection_matches():
     np.testing.assert_allclose(_n(jcfo.pilot_freq_shift(js, jnp.asarray(sig))),
                                tcfo.pilot_freq_shift(ts, _t(sig)).numpy(),
                                rtol=0, atol=ATOL128)
+
+
+# the coarse CFO's window geometries: the stock (PlutoSDR) config, LTE 5G
+# broadcast's 0.37 kHz numerology (600 windows of 90 bins, FFT branch only:
+# its 92160-point preamble is past the partial product's limit), and the
+# stock config with hand-made borders of unequal widths (26-60 bins)
+CFO_GEOMETRIES = {
+    "pluto": {},
+    "broadcast": dict(fft_size=82944, num_data_subc=48000, num_pilot_subc=600,
+                      cp_size=9216, num_symb=2, pr_sin_len=4096, mod_type=6),
+    "uneven": {},
+}
+UNEVEN_BORDERS = np.array([134, 160, 216, 250, 300, 320, 380, 420, 470, 503])
+# (geometry, backend): xla takes the FFT branch, matmul the partial product
+CFO_CASES = [("pluto", "xla"), ("pluto", "matmul"), ("broadcast", "xla"),
+             ("uneven", "xla"), ("uneven", "matmul")]
+
+
+def _cfo_specs(geometry, backend, dtype_name):
+    """(JAX spec, port spec) of a CFO geometry under ``backend``."""
+    jdt = {"c64": jnp.complex64, "c128": jnp.complex128}[dtype_name]
+    tdt = {"c64": torch.complex64, "c128": torch.complex128}[dtype_name]
+    kw = CFO_GEOMETRIES[geometry]
+    js = jframe.make_frame_spec(jconfig.ModemConfig(**kw), dtype=jdt,
+                                fft_backend=backend)
+    if geometry == "uneven":
+        js = dataclasses.replace(js, cfo_borders=UNEVEN_BORDERS)
+    ts = tframe.frame_spec_from_arrays(
+        dataclasses.asdict(js.cfg),
+        {k: getattr(js, k) for k in tframe.ARRAY_FIELDS}, device=CPU,
+        dtype=tdt, fft_backend=backend)
+    return js, ts
+
+
+def _planted_spectrum(ts, rng):
+    """[5, preamble_len] complex128 in fftshifted order, with exact
+    magnitudes (k, -k, ik or -ik for an integer k) planting ties: a flat
+    zero row; small integer levels (ties in most windows); every window
+    flat at 1 with equal peaks 5 at its first and last bin; equal peaks 7
+    at its middle and last bin (both rows 9 outside the windows, so a bin
+    searched outside its window wins); and integer levels 0-40."""
+    size = ts.cfg.preamble_len
+    unit = rng.choice(np.array([1, -1, 1j, -1j]), (5, size))
+    spec = np.zeros((5, size), np.complex128)
+    spec[1] = rng.integers(0, 3, size)
+    spec[2] = spec[3] = 9.0
+    for lo, hi in ts.cfo_segments:
+        spec[2:4, lo:hi] = 1.0
+        spec[2, [lo, hi - 1]] = 5.0
+        spec[3, [(lo + hi) // 2, hi - 1]] = 7.0
+    spec[4] = rng.integers(0, 41, size)
+    return spec * unit
+
+
+@pytest.mark.parametrize("inputs", ["noisy", "planted"])
+@pytest.mark.parametrize("geometry,backend", CFO_CASES)
+def test_pilot_freq_shift_one_search_equals_jax(geometry, backend, inputs,
+                                                monkeypatch):
+    """The coarse CFO's one gather and one argmax over every window give
+    exactly the JAX package's per-window loop, on the FFT branch (xla) and
+    the partial product (matmul), at the stock, broadcast and uneven window
+    geometries, complex128 and complex64.  ``noisy``: preambles with CFO
+    and noise, and a zero row (every window flat).  ``planted``: spectra
+    with exact ties (``_planted_spectrum``) handed to both packages in place
+    of their transforms, so each first-maximum rule meets the same ties."""
+    for dtype_name in ("c128", "c64"):
+        js, ts = _cfo_specs(geometry, backend, dtype_name)
+        cfg = ts.cfg
+        assert ("cfo_basis" in ts.tensors) == (backend == "matmul")
+        rng = np.random.default_rng(21)
+        cdt = np.complex128 if dtype_name == "c128" else np.complex64
+        if inputs == "noisy":
+            k = np.arange(cfg.preamble_len)
+            sig = (np.tile(js.preamble_time, (4, 1))
+                   * np.exp(2j * np.pi * np.array([[0.0], [3e-4], [-2e-3],
+                                                   [0.0]]) * k)
+                   + 0.05 * _crandn(rng, (4, cfg.preamble_len)))
+            sig[3] = 0.0
+        else:
+            planted = _planted_spectrum(ts, rng).astype(cdt)
+            cols = np.concatenate([np.arange(lo, hi)
+                                   for lo, hi in ts.cfo_segments])
+            unshifted = np.fft.ifftshift(planted, axes=-1)
+            monkeypatch.setattr(jcfo.fftops, "fft_fwd",
+                                lambda x: jnp.asarray(unshifted))
+            monkeypatch.setattr(jcfo.fftops, "partial_dft",
+                                lambda x, rows: jnp.asarray(planted[:, cols]))
+            monkeypatch.setattr(tcfo.fftops, "fft_fwd",
+                                lambda x: torch.from_numpy(unshifted))
+            monkeypatch.setattr(
+                tcfo.fftops, "complex_matmul",
+                lambda x, w: torch.from_numpy(planted[:, cols].copy()))
+            sig = np.zeros((5, cfg.preamble_len))
+        sig = sig.astype(cdt)
+        want = _n(jcfo.pilot_freq_shift(js, jnp.asarray(sig)))
+        got = tcfo.pilot_freq_shift(ts, _t(sig)).numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+        monkeypatch.undo()
+
+
+@pytest.mark.parametrize("geometry,backend", CFO_CASES)
+def test_cfo_window_index_holds_each_window(geometry, backend):
+    """``cfo_win_idx`` [n_windows, w_max] holds each used window's bins in
+    order, then repeats its first bin: as unshifted FFT bins under xla, as
+    columns of the partial product under matmul.  The two benchmark
+    geometries' windows are those measured: 8 of 41 bins over 134-503
+    (window 4 skipped), 600 of 90 over 19035-73125 (window 300 skipped)."""
+    _, ts = _cfo_specs(geometry, backend, "c64")
+    size = ts.cfg.preamble_len
+    segs = ts.cfo_segments
+    idx = ts.tensors["cfo_win_idx"]
+    widths = [hi - lo for lo, hi in segs]
+    assert idx.dtype == torch.int64 and idx.device == CPU
+    assert tuple(idx.shape) == (len(segs), max(widths))
+    idx = idx.numpy()
+    if backend == "xla":
+        idx = (idx + size // 2) % size          # back to fftshifted bins
+    off = 0
+    for row, (lo, hi) in zip(idx, segs):
+        first = lo if backend == "xla" else off
+        np.testing.assert_array_equal(row[:hi - lo],
+                                      np.arange(first, first + hi - lo))
+        assert (row[hi - lo:] == first).all()
+        off += hi - lo
+    skipped = np.flatnonzero(~ts.cfo_window_mask)
+    if geometry == "pluto":
+        assert (len(segs), set(widths), segs[0][0], segs[-1][1],
+                list(skipped)) == (8, {41}, 134, 503, [4])
+    elif geometry == "broadcast":
+        assert (len(segs), set(widths), segs[0][0], segs[-1][1],
+                list(skipped)) == (600, {90}, 19035, 73125, [300])
+    else:
+        assert len(set(widths)) > 1 and max(widths) == 60

@@ -1,12 +1,12 @@
 """The port's trace recorder (``io/trace.py``) on the CPU: off, it records
 nothing and the steps run the same operations; on, its spans nest under
 their entry call on ``time.time_ns``, the gated sync's work counts are exact
-and its hit count equals the frames the outputs mark valid, and the
-overlap-save matched filter counts its chunks; the stage
-reader splits a chrome trace's replays between their marks; and the spans
-land in a profiler trace on its own clock.  The graph-side spans, the marks
-in a captured graph and the replayed counts need the card
-(``tests/test_torch_cuda.py``)."""
+and its hit count equals the frames the outputs mark valid, the
+overlap-save matched filter counts its chunks and the coarse CFO its
+windows; the stage reader splits a chrome trace's replays between their
+marks; and the spans land in a profiler trace on its own clock.  The
+graph-side spans, the marks in a captured graph and the replayed counts
+need the card (``tests/test_torch_cuda.py``)."""
 
 import json
 import time
@@ -127,7 +127,7 @@ def test_off_records_nothing_and_runs_the_same_ops(blocks, monkeypatch):
     monkeypatch.undo()
     assert trace.drain() == {"spans": [], "counts": {
         "regions_scored": 0, "slots_demodulated": 0, "mf_chunks": 0,
-        "hits_accepted": 0}}
+        "cfo_windows": 0, "hits_accepted": 0}}
 
 
 def test_spans_nest_under_their_entry_call():
@@ -171,6 +171,8 @@ def test_work_counts_and_hits_on_the_cpu(blocks):
     K = rxr.max_frames + CFG.t2_gate_slack
     assert counts["regions_scored"] == len(blocks) * 2 * K
     assert counts["slots_demodulated"] == len(blocks) * 2 * rxr.max_frames
+    assert counts["cfo_windows"] == (len(blocks) * 2 * rxr.max_frames
+                                     * CFG.num_pilot_subc)
     valid = sum(int(o.valid.sum()) for o in outs)
     assert counts["hits_accepted"] == valid > 0
     keys = graphs.launch_counts()
@@ -195,6 +197,37 @@ def test_matched_filter_counts_its_chunks(L, rows, n, chunks):
     trace.enable()
     sync.matched_filter_scores(spec, x)
     assert trace.drain()["counts"]["mf_chunks"] == rows * chunks
+
+
+BROADCAST = ModemConfig(fft_size=82944, num_data_subc=48000,
+                        num_pilot_subc=600, cp_size=9216, num_symb=2,
+                        pr_sin_len=4096, mod_type=6)
+
+
+@pytest.mark.parametrize("cfg,backend,rows,windows", [
+    (CFG, "matmul", 3, 8), (CFG, "xla", 3, 8), (BROADCAST, "xla", 20, 600)],
+    ids=["stock-matmul", "stock-xla", "broadcast-xla"])
+def test_coarse_cfo_counts_its_windows(cfg, backend, rows, windows):
+    """With the recorder on, one coarse-CFO search counts rows x windows:
+    20 x 600 = 12000 at the broadcast cell's rows, rows x 8 at the stock
+    geometry on either branch; nothing with the recorder off.  A batch
+    receive counts its rows' windows once a call."""
+    from c_ofdm_tpu_torch.ops import cfo
+    spec = make_frame_spec(cfg, torch.complex64, device="cpu",
+                           fft_backend=backend)
+    assert spec.tensors["cfo_win_idx"].shape[0] == windows
+    x = torch.randn((rows, cfg.preamble_len), dtype=torch.complex64)
+    cfo.pilot_freq_shift(spec, x)
+    assert trace.drain()["counts"]["cfo_windows"] == 0
+    trace.enable()
+    cfo.pilot_freq_shift(spec, x)
+    assert trace.drain()["counts"]["cfo_windows"] == rows * windows
+    if cfg is CFG:
+        step = FlagshipStep(spec)
+        caps = _captures()
+        step.receive(caps)
+        step.receive(caps)
+        assert trace.drain()["counts"]["cfo_windows"] == 2 * 3 * windows
 
 
 def _event(name, ts, dur, cat="kernel"):
