@@ -119,7 +119,7 @@
 //   12 x 6912.  Blocks of L = 4096 points (512 threads, 64 KB, compiled for
 //   3 to an SM) were the fastest of the splits timed on the H100 at the
 //   16K and 32K steps' shapes, and 12 x 6912 beat 16 x 5184 at 82944
-//   (chip_smoke.py phase 18 times the other splits).  Clusters of more than
+//   (PERF.md section 6 records the other splits).  Clusters of more than
 //   8 blocks are the H100's non-portable sizes; a cluster sits in one GPC
 //   (16-18 SMs), so the card holds 16 clusters of 12 blocks of 6912 points
 //   at once (7 at 8 points a thread, one 864-thread block an SM), and a
@@ -147,8 +147,8 @@
 //   y[k1 + N1·k2] times scale in runs of 4 points (32 bytes, whole L2
 //   sectors) at stride N1.  The split (ops/dft.py::_fourstep_split) takes
 //   the largest N1 of the register kernel: 165888 = 64 x 2592 was the
-//   fastest of the splits and row groups timed on the H100 (chip_smoke.py
-//   phase 18 times the others).  What bounds the route: the bytes twice
+//   fastest of the splits and row groups timed on the H100 (PERF.md
+//   section 6 records the others).  What bounds the route: the bytes twice
 //   over, and launch 2's mixed passes (instruction- and latency-bound at
 //   one 648-thread block an SM).  Plain version:
 //   ops/dft.py::dft_fourstep_ref.

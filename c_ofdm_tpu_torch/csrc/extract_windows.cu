@@ -64,9 +64,6 @@
 // this kernel's own time without shortening the two-launch chain of a
 // streaming buffer (candidate regions, matched filter, frame windows).
 //
-// c_ofdm_empty_launch starts a kernel that does nothing on a given grid: its
-// device time is the card's floor for one launch of that grid.
-//
 // c_ofdm_stage_mark starts stage_mark_kernel<stage>, one thread that does
 // nothing: a mark in the device timeline (io/trace.py captures one into a
 // traced graph at each stage boundary of the receive chain), named by the
@@ -178,8 +175,6 @@ extract_scalar_kernel(const T* __restrict__ x, const S* __restrict__ starts,
   out[w * win + j] = x[row * n + s + j];
 }
 
-__global__ void empty_kernel() {}
-
 constexpr int kStages = 6;   // io/trace.py's STAGES
 
 template <int Stage>
@@ -242,18 +237,6 @@ extern "C" int c_ofdm_extract_windows(const void* x, const void* starts,
     launch<int64_t>(x, starts, out, windows_per_row, n, win, elem_bytes, units,
                     grid, threads, st);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// A kernel that does nothing, on grid (grid_x, grid_y) of `threads` threads.
-extern "C" int c_ofdm_empty_launch(int grid_x, int grid_y, int threads,
-                                   void* stream) {
-  if (grid_x < 1 || grid_y < 1 || grid_y > 65535 || threads < 1 ||
-      threads > 1024) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  empty_kernel<<<dim3(grid_x, grid_y), threads, 0,
-                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -51,7 +51,6 @@ class FrameSpec:
     #                                 not gathers, on the full-spectrum path)
     fft_backend: str = "matmul"     # ops/fft.py BACKENDS (the JAX default
     #                                 is "xla")
-    extract_backend: str = "auto"   # K1 on CUDA tensors, plain gather on CPU
 
     @property
     def device(self) -> torch.device:
@@ -172,12 +171,8 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
 
 
 def _spec(cfg: ModemConfig, arrays: Dict[str, np.ndarray], device, dtype,
-          fft_backend: str, extract_backend: str) -> FrameSpec:
+          fft_backend: str) -> FrameSpec:
     fft.check_backend(fft_backend)
-    if extract_backend != "auto":
-        raise ValueError(
-            f"extract_backend {extract_backend!r}: the port has only 'auto' "
-            f"(K1 on CUDA tensors, the plain gather on CPU tensors)")
     if dtype not in (torch.complex64, torch.complex128):
         raise ValueError(f"dtype must be complex64 or complex128, got {dtype}")
     device = torch.device(device)
@@ -188,7 +183,6 @@ def _spec(cfg: ModemConfig, arrays: Dict[str, np.ndarray], device, dtype,
     arrays = {k: np.asarray(arrays[k]) for k in ARRAY_FIELDS}
     return FrameSpec(
         cfg=cfg, dtype=dtype, fft_backend=fft_backend,
-        extract_backend=extract_backend,
         tensors=_build_tensors(cfg, arrays, device, dtype, fft_backend),
         structured=chanest.layout_is_structured(
             cfg, arrays["pilot_bins"], arrays["data_bins"]),
@@ -196,8 +190,7 @@ def _spec(cfg: ModemConfig, arrays: Dict[str, np.ndarray], device, dtype,
 
 
 def make_frame_spec(cfg: ModemConfig = None, dtype=torch.complex64, *,
-                    device, fft_backend: str = "matmul",
-                    extract_backend: str = "auto") -> FrameSpec:
+                    device, fft_backend: str = "matmul") -> FrameSpec:
     """Build a spec from a config, its numpy constants computed by the
     port's own ``oracle.reference``.  ``device`` is required: there is no
     implicit default device.  ``fft_backend`` is one of ``ops.fft.BACKENDS``
@@ -217,16 +210,15 @@ def make_frame_spec(cfg: ModemConfig = None, dtype=torch.complex64, *,
         cfo_borders=borders,
         cfo_window_mask=wmask,
     )
-    return _spec(cfg, arrays, device, dtype, fft_backend, extract_backend)
+    return _spec(cfg, arrays, device, dtype, fft_backend)
 
 
 def frame_spec_from_arrays(cfg_fields: dict, arrays: Dict[str, np.ndarray],
                            device, dtype=torch.complex64,
-                           fft_backend: str = "matmul",
-                           extract_backend: str = "auto") -> FrameSpec:
+                           fft_backend: str = "matmul") -> FrameSpec:
     """Build a spec from another package's constants: ``cfg_fields`` is
     ``dataclasses.asdict`` of a ModemConfig and ``arrays`` holds the numpy
     fields named in ARRAY_FIELDS (e.g. taken from a JAX FrameSpec).  The
     device constants are derived from these arrays, not recomputed."""
     return _spec(ModemConfig(**cfg_fields), arrays, device, dtype,
-                 fft_backend, extract_backend)
+                 fft_backend)

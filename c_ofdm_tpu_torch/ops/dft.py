@@ -137,7 +137,7 @@ def _fourstep_split(n: int) -> tuple[int, int] | None:
     and a short N2 keeps launch 2's blocks small enough to write 4 rows
     k1 together), else the least N1 above 64; None where n has no such
     split.  165888 = 64 x 2592, 117649 = 49 x 2401, 262144 = 64 x 4096,
-    82944 = 64 x 1296 (phase 18 of ``chip_smoke.py`` times the others)."""
+    82944 = 64 x 1296 (``PERF.md`` section 6 records the others' times)."""
     if not (RADIX_MIN_N ** 2 <= n <= FOURSTEP_MAX_N and _smooth(n)):
         return None
     fits = [a for a in _smooth_upto(RADIX_MAX_N) if a >= RADIX_MIN_N
@@ -186,11 +186,11 @@ def _fourstep_shape(n1: int, n2: int) -> tuple[int, int]:
 
 def _fits(route: str, n: int) -> bool:
     """Whether the kernel of ``route`` takes length n: each route the sizes
-    ``_route`` gives it, the mixed kernel also the powers of two (phase 18
-    of ``chip_smoke.py`` times it against the radix kernel there), the
-    four-step kernel also the cluster route's sizes (timed against it
-    there), the chirp kernel every n from 4097 to 2^25 and the dense
-    kernel every n."""
+    ``_route`` gives it, the mixed kernel also the powers of two (timed
+    against the radix kernel there, ``PERF.md`` section 6), the four-step
+    kernel also the cluster route's sizes (timed against it there), the
+    chirp kernel every n from 4097 to 2^25 and the dense kernel every
+    n."""
     if route == "radix":
         return RADIX_MIN_N <= n <= RADIX_MAX_N and n & (n - 1) == 0
     if route == "mixed":
@@ -227,9 +227,9 @@ _forced = None      # the route _forced_route names, else None
 def _forced_route(route: str):
     """Inside the block ``dft`` launches the kernel of ``route`` on CUDA
     tensors, where ``_route`` would pick another (and raises ValueError
-    where that kernel does not take n): ``chip_smoke.py`` and the card tests
-    time and check the dense route, and the mixed one at powers of two, on
-    the inputs the path gives the new routes."""
+    where that kernel does not take n): the card tests check the dense
+    route, and the mixed one at powers of two, on the inputs the path gives
+    the new routes."""
     global _forced
     if route not in ROUTES:
         raise ValueError(f"dft: no route {route!r}")
@@ -983,3 +983,4 @@ dft.launches = 0
 for _r in ROUTES:
     setattr(dft, f"{_r}_launches", 0)
 del _r
+graphs.counted(dft)

@@ -25,8 +25,8 @@ element per thread.  ``launch_plan`` picks the class (``scalar`` or
 ``wide``) and its grid from the shape and the element width alone: small
 launches, whose time is the launch and two memory latencies, keep the scalar
 body, which measured a few percent faster there; all others take the wide
-body.  ``body=`` on a wrapper forces a class, for timing one body against
-another and for tests; nothing gives way to another class after a failure.
+body.  ``body=`` on a wrapper forces a class, so that the card tests check
+both bodies; nothing gives way to another class after a failure.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import graphs
 from . import _kernels
 
 _ELEM_BYTES = {torch.complex64: 8, torch.complex128: 16}
@@ -44,7 +45,7 @@ _START_BYTES = {torch.int32: 4, torch.int64: 8}
 
 # The wide body copies WIDE_UNITS 16-byte pairs per thread: 64 bytes in
 # flight.  The threshold comes from timing both bodies at the receiver's
-# shapes on an H100 (chip_smoke.py, gather-timing): up to 1 MiB each way (the
+# shapes on an H100 (PERF.md, section 6): up to 1 MiB each way (the
 # candidate regions of one ring) the scalar body is faster, above it (frame
 # windows of one ring and everything larger) the wide body is.
 CLASSES = ("scalar", "wide")
@@ -159,9 +160,6 @@ def _lib() -> ctypes.CDLL:
                    ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.c_ofdm_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p]
-    lib.c_ofdm_empty_launch.restype = ctypes.c_int
     lib.c_ofdm_stage_mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.c_ofdm_stage_mark.restype = ctypes.c_int
     lib.c_ofdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -315,22 +313,6 @@ def extract_windows_multi(rings: torch.Tensor, starts: torch.Tensor,
     return out
 
 
-def empty_launch(grid: tuple[int, int], threads: int,
-                 device: torch.device) -> None:
-    """Start the kernel that does nothing on ``grid`` blocks of ``threads``
-    threads, on ``device``'s current stream: its device time is the card's
-    floor for one launch.  Counted nowhere."""
-    lib = _lib()
-    with torch.cuda.device(device):
-        rc = lib.c_ofdm_empty_launch(
-            grid[0], grid[1], threads,
-            torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"empty kernel launch failed: "
-                           f"{lib.c_ofdm_cuda_error_string(rc).decode()} "
-                           f"(grid={grid}, threads={threads})")
-
-
 def stage_mark(stage: int, device: torch.device) -> None:
     """Start ``stage_mark_kernel<stage>`` (one thread that does nothing)
     on ``device``'s current stream: ``io/trace.py``'s mark of a stage
@@ -347,3 +329,4 @@ def stage_mark(stage: int, device: torch.device) -> None:
 for _fn in (extract_windows, extract_windows_single, extract_windows_multi):
     _fn.launches = 0
     _fn.class_launches = dict.fromkeys(CLASSES, 0)
+    graphs.counted(_fn)

@@ -10,12 +10,12 @@ Targets are named by module and function (``"pkg.mod:fn"``), since spawned
 processes import them afresh; a target's module must not import jax.
 
 Two targets come with it, for callers that hold a whole global capture and
-want the mesh-wide result back (the tests and ``chip_smoke.py``):
-``receive_rank`` (the sharded bulk receiver) and ``stream_rank`` (the
-channel-sharded stream).  Each cuts its rank's part with ``ingest``, runs
-the path with the port's kernel launch counts set to 0, and returns the
-gathered view as numpy arrays with the rank's counts and, on the card, the
-CUDA graphs its captured calls hold.
+want the mesh-wide result back (the tests): ``receive_rank`` (the sharded
+bulk receiver) and ``stream_rank`` (the channel-sharded stream).  Each cuts
+its rank's part with ``ingest``, runs the path, and returns the gathered
+view as numpy arrays with the kernel launches the path made on the rank
+(by wrapper name) and, on the card, the CUDA graphs its captured calls
+hold.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
+
+from ..utils import graphs
 
 
 def _free_port() -> int:
@@ -130,19 +132,12 @@ def _numpy(tree) -> dict:
     return {k: v.cpu().numpy() for k, v in tree._asdict().items()}
 
 
-def _launch_counts() -> dict:
-    from ..ops import dft, extract
-    return {"K1": extract.extract_windows.launches,
-            "K2": extract.extract_windows_single.launches,
-            "K3": extract.extract_windows_multi.launches,
-            "K4": dft.dft.launches}
-
-
-def _zero_launch_counts() -> None:
-    from ..ops import dft, extract
-    for f in (extract.extract_windows, extract.extract_windows_single,
-              extract.extract_windows_multi, dft.dft):
-        f.launches = 0
+def _launches_since(before: dict) -> dict:
+    """{wrapper name: launches} each kernel wrapper made since ``before``
+    (``graphs.launch_counts()``)."""
+    return {fn.__name__: n - before.get((fn, name, k), 0)
+            for (fn, name, k), n in graphs.launch_counts().items()
+            if name == "launches"}
 
 
 def _graphs_of(call) -> list:
@@ -176,11 +171,11 @@ def receive_rank(device, cfg, dtype, fft_backend, captures, n_channel,
     block = make_global_capture(mesh, torch.from_numpy(captures[idx]),
                                 captures.shape)
     recv = make_sharded_receiver(spec, mesh, max_frames, sync_mode)
-    _zero_launch_counts()
+    before = graphs.launch_counts()
     out = recv(block)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    launches = _launch_counts()
+    launches = _launches_since(before)
     return {"coords": (mesh.c, mesh.t), "block": block.cpu().numpy(),
             "out": _numpy(gather_outputs(mesh, out)), "launches": launches,
             "graphs": _graphs_of(recv.graphs)}
@@ -208,14 +203,14 @@ def stream_rank(device, cfg, dtype, fft_backend, blocks, n_channel, n_time,
     step = make_sharded_streaming(spec, mesh, max_frames)
     local = [make_global_channel_array(mesh, torch.from_numpy(b[rows]), C)
              for b in blocks]
-    _zero_launch_counts()
+    before = graphs.launch_counts()
     outs = []
     for blk in local:
         state, out = step(state, blk)
         outs.append(out)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    launches = _launch_counts()
+    launches = _launches_since(before)
     return {"outs": [_numpy(gather_channels(mesh, o)) for o in outs],
             "state": _numpy(gather_channels(mesh, state)),
             "launches": launches, "graphs": _graphs_of(step.graphs)}

@@ -37,11 +37,12 @@ while they make the next.
 
 Kernel launch counts.  The kernel wrappers count their launches on the host
 (``ops.extract``'s three wrappers: ``launches`` and ``class_launches``;
-``ops.dft.dft``: ``launches`` and one ``<route>_launches`` a route).  No
-Python runs on a replay, so a graph records the counts its capture added
-and adds them again on every replay; the set-up runs (warm-up and capture)
-leave the counts as they found them.  A count therefore says how many times
-the path launched the kernel in calls made by its users.
+``ops.dft.dft``: ``launches`` and one ``<route>_launches`` a route), and
+each registers with ``counted``.  No Python runs on a replay, so a graph
+records the counts its capture added and adds them again on every replay;
+the set-up runs (warm-up and capture) leave the counts as they found them.
+A count therefore says how many times the path launched the kernel in
+calls made by its users.
 
 Tracing (``io/trace.py``).  With the recorder on, a call runs under an
 ``entry`` span and is captured and replayed as a graph of its own (the
@@ -107,19 +108,22 @@ def _holding():
         _held = None
 
 
-def _counted():
-    """The kernel wrappers whose launch counts a graph replays, and the
-    trace recorder's ``count``, whose work counts ride with them."""
-    from ..ops import dft, extract
-    return (extract.extract_windows, extract.extract_windows_single,
-            extract.extract_windows_multi, dft.dft, trace.count)
+_COUNTED: list = [trace.count]   # see ``counted``
+
+
+def counted(fn: Callable) -> None:
+    """Registers ``fn``, a kernel wrapper, as one whose ``*launches``
+    attributes (ints, or dicts of ints) a graph replays.  Each kernel
+    module registers its wrappers where it sets their counts to 0.  The
+    trace recorder's ``count`` rides with them (``work_counts``)."""
+    _COUNTED.append(fn)
 
 
 def launch_counts() -> Dict[tuple, int]:
     """Every launch count of the kernel wrappers, and the recorder's work
     counts: {(wrapper, attribute, class or None): count}."""
     counts = {}
-    for fn in _counted():
+    for fn in _COUNTED:
         for name, value in vars(fn).items():
             if not name.endswith(("launches", "work_counts")):
                 continue

@@ -1,11 +1,12 @@
 """The port on the card: K1, K2, K3 and K4 (each of its seven routes)
-against their plain versions, the flagship step (matmul and pallas
-backends, and pallas at a 1536-point geometry, at DVB-T2's 16K and 32K
-FFT sizes, at LTE 5G broadcast's 82944 and at the same numerology sampled
-at 61.44 Msps, 165888), one gated streaming buffer,
-the MAC codec and channel simulator against their CPU runs, and the
-captured calls (CUDA-graph replays) against their eager runs, the sharded
-receiver and the channel-sharded stream among them.
+against their plain versions, the flagship step (every FFT backend, and
+pallas at a 1536-point geometry, at DVB-T2's 16K and 32K FFT sizes, at LTE
+5G broadcast's 82944 and at the same numerology sampled at 61.44 Msps,
+165888; the wideband 8k step under ct on impaired captures), streams on
+MAC-framed rings against their planted frames, the MAC codec, the channel
+simulator and the link loop against their CPU runs, the captured calls
+(CUDA-graph replays) against their eager runs, the apps, and
+``parallel/`` in worlds of 1, 2 and 4 ranks on the one card.
 
 Every test here needs CUDA and skips without it.  This file imports no jax,
 so it also runs where jax is not installed:
@@ -41,6 +42,22 @@ WIN = CFG.preamble_len + CFG.message_len
 BROADCAST = ModemConfig(fft_size=82944, num_data_subc=48000,
                         num_pilot_subc=600, cp_size=9216, num_symb=2,
                         pr_sin_len=4096, mod_type=6)
+# LTE's 15 MHz numerology (3GPP TS 36.211: 1536-point FFT, normal CP 108)
+LTE1536 = ModemConfig(fft_size=1536, num_data_subc=768, num_pilot_subc=16,
+                      cp_size=108)
+
+
+def _dvbt2(n):
+    """The wideband layout at DVB-T2's n-point FFT with its 1/8 guard
+    interval (ETSI EN 302 755)."""
+    return ModemConfig(fft_size=n, num_data_subc=n // 2,
+                       num_pilot_subc=n // 256, cp_size=n // 8, num_symb=2,
+                       pr_sin_len=n // 16, mod_type=6)
+
+
+# a rank's launches (``parallel/launch.py``) with no kernel launched
+NO_LAUNCHES = dict.fromkeys(["extract_windows", "extract_windows_single",
+                             "extract_windows_multi", "dft"], 0)
 
 
 @pytest.fixture
@@ -94,15 +111,21 @@ def test_kernel_rejects_what_it_does_not_take(dev):
 
 
 def test_flagship_step_on_card(dev):
-    spec = make_frame_spec(CFG, torch.complex64, device=dev)
-    payload = np.random.default_rng(1).integers(
-        0, 256, (8, CFG.frame_bytes), dtype=np.uint8)
+    """B = 256 stock payloads through the matmul step: exact, K1 once; then
+    the same frames impaired (``_check_impaired``: at their planted
+    offsets, no frame in the all-zero rows, every row equal to the CPU
+    run), K4 never."""
+    rng = np.random.default_rng(1)
+    payload = rng.integers(0, 256, (256, CFG.frame_bytes), dtype=np.uint8)
+    step = FlagshipStep(make_frame_spec(CFG, torch.complex64, device=dev))
     before = extract.extract_windows.launches
-    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+    res, s = step(torch.from_numpy(payload).to(dev))
     torch.cuda.synchronize()
     assert extract.extract_windows.launches == before + 1
     assert bool(s.found.all()) and not bool(s.frame_start.any())
     np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    assert _check_impaired(step, payload, rng, 1024, 40.0,
+                           1e-4) == _k4_counts({})
 
 
 def test_module_moves_to_card(dev):
@@ -256,14 +279,6 @@ def test_empty_shapes_and_far_starts(dev):
     torch.cuda.synchronize()
     assert torch.equal(got, extract.extract_windows_single_ref(ring, far, 300))
     assert torch.equal(got[0], ring[-300:]) and torch.equal(got[1], ring[:300])
-
-
-def test_empty_launch_runs_and_rejects_bad_grids(dev):
-    for grid in ((1, 1), (49, 4), (41, 23)):
-        extract.empty_launch(grid, 256, dev)
-    torch.cuda.synchronize()
-    with pytest.raises(RuntimeError):
-        extract.empty_launch((1, 1), 2048, dev)
 
 
 def test_gated_buffer_on_card_equals_cpu(dev):
@@ -592,59 +607,6 @@ def test_dft_cluster_kernel_replays_in_a_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, dft.dft(x2, sign, scale))
-
-
-@pytest.mark.parametrize("name", ["16k", "32k"])
-def test_pallas_flagship_step_dvbt2_on_card(dev, name):
-    """B = 2 at DVB-T2's 16K and 32K FFT sizes under fft_backend="pallas":
-    K4 launched twice, both on the cluster route, K1 once, payloads exact
-    and equal to the CPU run (the plain version)."""
-    n = {"16k": 16384, "32k": 32768}[name]
-    cfg = ModemConfig(fft_size=n, num_data_subc=n // 2,
-                      num_pilot_subc=n // 256, cp_size=n // 8, num_symb=2,
-                      pr_sin_len=n // 16, mod_type=6)
-    payload = np.random.default_rng(n).integers(
-        0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
-    spec = make_frame_spec(cfg, torch.complex64, device=dev,
-                           fft_backend="pallas")
-    before = _route_counts()
-    k1 = extract.extract_windows.launches
-    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
-    torch.cuda.synchronize()
-    assert extract.extract_windows.launches == k1 + 1
-    assert _route_counts() == {k: v + 2 * (k in ("launches", "cluster"))
-                               for k, v in before.items()}
-    assert bool(s.found.all()) and not bool(s.frame_start.any())
-    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
-    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
-                                       fft_backend="pallas"))
-    res_c, _ = cpu(torch.from_numpy(payload))
-    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
-
-
-def test_pallas_flagship_step_broadcast_on_card(dev):
-    """B = 2 at LTE 5G broadcast's 0.37 kHz numerology (82944-point FFT,
-    CP 9216, 48600 occupied subcarriers) under fft_backend="pallas": K4
-    launched twice, both on the cluster route (12-block clusters), K1
-    once, payloads exact and equal to the CPU run."""
-    cfg = BROADCAST
-    payload = np.random.default_rng(82944).integers(
-        0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
-    spec = make_frame_spec(cfg, torch.complex64, device=dev,
-                           fft_backend="pallas")
-    before = _route_counts()
-    k1 = extract.extract_windows.launches
-    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
-    torch.cuda.synchronize()
-    assert extract.extract_windows.launches == k1 + 1
-    assert _route_counts() == {k: v + 2 * (k in ("launches", "cluster"))
-                               for k, v in before.items()}
-    assert bool(s.found.all()) and not bool(s.frame_start.any())
-    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
-    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
-                                       fft_backend="pallas"))
-    res_c, _ = cpu(torch.from_numpy(payload))
-    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
 
 
 def _scores_f64(spec, x):
@@ -1056,58 +1018,6 @@ def test_dft_fourstep_refused_setup_raises(dev):
             dft._prepare("fourstep", dev.index, *size)
 
 
-def test_pallas_flagship_step_165888_on_card(dev):
-    """B = 2 at the 0.37 kHz numerology sampled at 61.44 Msps (a
-    165888-point FFT, CP 18432) under fft_backend="pallas": K4 called
-    twice, both on the four-step route (two launches each), K1 once,
-    payloads exact and equal to the CPU run."""
-    cfg = ModemConfig(fft_size=165888, num_data_subc=48000,
-                      num_pilot_subc=600, cp_size=18432, num_symb=2,
-                      pr_sin_len=4096, mod_type=6)
-    payload = np.random.default_rng(165888).integers(
-        0, 256, (2, cfg.frame_bytes), dtype=np.uint8)
-    spec = make_frame_spec(cfg, torch.complex64, device=dev,
-                           fft_backend="pallas")
-    before = _route_counts()
-    k1 = extract.extract_windows.launches
-    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
-    torch.cuda.synchronize()
-    assert extract.extract_windows.launches == k1 + 1
-    assert _route_counts() == {k: v + 4 * (k in ("launches", "fourstep"))
-                               for k, v in before.items()}
-    assert bool(s.found.all()) and not bool(s.frame_start.any())
-    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
-    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
-                                       fft_backend="pallas"))
-    res_c, _ = cpu(torch.from_numpy(payload))
-    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
-
-
-def test_pallas_flagship_step_1536_on_card(dev):
-    """B = 8 at LTE's 1536-point geometry under fft_backend="pallas": K4
-    launched twice, both on the mixed route, K1 once, payloads exact and
-    equal to the CPU run."""
-    cfg = ModemConfig(fft_size=1536, num_data_subc=768, num_pilot_subc=16,
-                      cp_size=108)
-    payload = np.random.default_rng(15).integers(
-        0, 256, (8, cfg.frame_bytes), dtype=np.uint8)
-    spec = make_frame_spec(cfg, torch.complex64, device=dev,
-                           fft_backend="pallas")
-    before = _route_counts()
-    k1 = extract.extract_windows.launches
-    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
-    torch.cuda.synchronize()
-    assert extract.extract_windows.launches == k1 + 1
-    assert _route_counts() == {k: v + 2 * (k in ("launches", "mixed"))
-                               for k, v in before.items()}
-    assert bool(s.found.all()) and not bool(s.frame_start.any())
-    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
-    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
-                                       fft_backend="pallas"))
-    res_c, _ = cpu(torch.from_numpy(payload))
-    assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
-
-
 def test_dft_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(TypeError):
         dft.dft(torch.zeros((4, 64), dtype=torch.complex128, device=dev))
@@ -1115,28 +1025,142 @@ def test_dft_kernel_rejects_what_it_does_not_take(dev):
         dft.dft(torch.zeros((4, 64), dtype=torch.float32, device=dev))
 
 
-def test_pallas_flagship_step_on_card(dev):
-    """B = 8 under fft_backend="pallas": K4 launched twice (TX and RX, both
-    on the radix route), K1 once, payloads exact and equal to the CPU
-    run."""
-    payload = np.random.default_rng(5).integers(
-        0, 256, (8, CFG.frame_bytes), dtype=np.uint8)
-    spec = make_frame_spec(CFG, torch.complex64, device=dev,
-                           fft_backend="pallas")
-    before = (dft.dft.launches, extract.extract_windows.launches,
-              dft.dft.radix_launches, dft.dft.dense_launches)
-    res, s = FlagshipStep(spec)(torch.from_numpy(payload).to(dev))
+# K4's geometries under fft_backend="pallas": (config, frames a step, K4
+# launches a step per route, the impaired captures' extra samples,
+# amplitude and CFO in cycles a sample, and the receiver's start of an
+# impaired frame less its planted one: at 165888 both packages place it a
+# sample early)
+PALLAS_GEOMETRIES = {
+    # the stock layout: the radix route
+    "stock": (CFG, 8, {"radix": 2}, 1024, 40.0, 1e-4, 0),
+    # LTE's 15 MHz numerology (1536 = 8·8·8·3): the mixed route
+    "1536": (LTE1536, 8, {"mixed": 2}, 1024, 40.0, 3e-5, 0),
+    # the stock layout at 510 = 2·3·5·17 points: the Bluestein route
+    "510": (ModemConfig(fft_size=510, num_data_subc=256, num_pilot_subc=8,
+                        cp_size=128), 8, {"bluestein": 2}, 1024, 40.0, 1e-4,
+            0),
+    # DVB-T2's 16K and 32K FFT sizes, 1/8 guard interval: the cluster route
+    "16k": (_dvbt2(16384), 2, {"cluster": 2}, 4096, 10.0, 1e-5, 0),
+    "32k": (_dvbt2(32768), 2, {"cluster": 2}, 4096, 10.0, 2e-6, 0),
+    # LTE 5G broadcast's 0.37 kHz numerology: the cluster route at
+    # 12-block clusters
+    "broadcast": (BROADCAST, 2, {"cluster": 2}, 4096, 10.0, 2e-6, 0),
+    # the same numerology sampled at 61.44 Msps (165888 points, CP 18432):
+    # the four-step route, two launches a call
+    "165888": (ModemConfig(fft_size=165888, num_data_subc=48000,
+                           num_pilot_subc=600, cp_size=18432, num_symb=2,
+                           pr_sin_len=4096, mod_type=6), 2, {"fourstep": 4},
+               4096, 10.0, 1e-6, -1),
+}
+ZERO_ROWS = 4
+SYNC_FIELDS = ("frame_start", "t2_begin", "pr_begin", "found")
+
+
+def _k4_counts(routes):
+    """``_route_counts()``'s change when K4 launches ``routes`` ({route:
+    launches})."""
+    return {"launches": sum(routes.values()),
+            **{r: routes.get(r, 0) for r in dft.ROUTES}}
+
+
+def _same_sync(a, b):
+    """Two (RxResult, SyncResult) with equal sync fields and bytes."""
+    for name in SYNC_FIELDS:
+        assert torch.equal(getattr(a[1], name), getattr(b[1], name)), name
+    assert torch.equal(a[0].mac_bytes, b[0].mac_bytes)
+
+
+def _impaired_captures(frames, rng, extra, amp, cfo):
+    """frames [B, frame_len] complex128 -> captures [B + ZERO_ROWS,
+    frame_len + extra] complex64 (numpy) and the planted offsets: each
+    frame at a random offset in [0, extra], amplitude ``amp``, CFO ``cfo``
+    cycles a sample, AWGN at 30 dB SNR, then ZERO_ROWS all-zero rows."""
+    nb, flen = frames.shape
+    n = flen + extra
+    offs = rng.integers(0, extra + 1, nb)
+    caps = np.zeros((nb + ZERO_ROWS, n), np.complex128)
+    for b in range(nb):
+        caps[b, offs[b]:offs[b] + flen] = frames[b] * amp
+    caps[:nb] *= np.exp(2j * np.pi * cfo * np.arange(n))
+    std = np.sqrt(float((np.abs(frames) ** 2).mean()) * amp ** 2
+                  * 10 ** (-30.0 / 10) / 2)
+    caps[:nb] += std * (rng.standard_normal((nb, n))
+                        + 1j * rng.standard_normal((nb, n)))
+    return caps.astype(np.complex64), offs
+
+
+def _check_impaired(step, payload, rng, extra, amp, cfo, shift=0,
+                    cpu_rows=None):
+    """The step's frames of ``payload`` [B, frame_bytes] (numpy) as
+    ``_impaired_captures`` through ``step.receive``, a graph replay: every
+    frame found at its planted offset plus ``shift`` with exact bytes, no
+    frame in a zero row, K1 once; sync fields and bytes equal to the same
+    receive run eagerly, and to the CPU run on the first ``cpu_rows`` rows
+    (all by default).  Returns ``_route_counts()``'s change in the
+    replay."""
+    from c_ofdm_tpu_torch.models import rx, tx
+    spec = step.bound_spec()
+    frames = tx.transmit(spec, torch.from_numpy(payload).to(spec.device))
+    caps_np, offs = _impaired_captures(
+        frames.cpu().numpy().astype(np.complex128), rng, extra, amp, cfo)
+    caps = torch.from_numpy(caps_np).to(spec.device)
+    before, k1 = _route_counts(), extract.extract_windows.launches
+    res, s = step.receive(caps)
     torch.cuda.synchronize()
-    assert (dft.dft.launches, extract.extract_windows.launches) == (
-        before[0] + 2, before[1] + 1)
-    assert (dft.dft.radix_launches, dft.dft.dense_launches) == (
-        before[2] + 2, before[3])
+    k4 = {k: v - before[k] for k, v in _route_counts().items()}
+    assert extract.extract_windows.launches == k1 + 1
+    nb = payload.shape[0]
+    found = s.found.cpu()
+    assert bool(found[:nb].all()) and not bool(found[nb:].any())
+    np.testing.assert_array_equal(s.frame_start[:nb].cpu().numpy(),
+                                  offs + shift)
+    np.testing.assert_array_equal(res.mac_bytes[:nb].cpu().numpy(), payload)
+    _same_sync(rx.receive_batch(spec, caps), (res, s))
+    rows = slice(None, cpu_rows)
+    cpu = FlagshipStep(make_frame_spec(spec.cfg, torch.complex64,
+                                       device="cpu",
+                                       fft_backend=spec.fft_backend))
+    res_c, s_c = cpu.receive(torch.from_numpy(caps_np[rows]))
+    for name in SYNC_FIELDS:
+        assert torch.equal(getattr(s, name)[rows].cpu(),
+                           getattr(s_c, name)), name
+    fc = s_c.found
+    assert torch.equal(res.mac_bytes[rows].cpu()[fc], res_c.mac_bytes[fc])
+    return k4
+
+
+@pytest.mark.parametrize("geometry", sorted(PALLAS_GEOMETRIES))
+def test_pallas_flagship_step_on_card(dev, geometry):
+    """FlagshipStep under fft_backend="pallas" at each of K4's geometries
+    (``PALLAS_GEOMETRIES``), a graph replay a call: clean payloads exact,
+    K4 launched on the geometry's route only, K1 once, sync fields and
+    bytes equal to the step run eagerly and the bytes to the CPU run; then
+    the frames impaired (``_check_impaired``), K4 half the step's
+    launches."""
+    from c_ofdm_tpu_torch.models import rx, tx
+    cfg, B, routes, extra, amp, cfo, shift = PALLAS_GEOMETRIES[geometry]
+    rng = np.random.default_rng(cfg.fft_size)
+    payload = rng.integers(0, 256, (B, cfg.frame_bytes), dtype=np.uint8)
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend="pallas"))
+    spec = step.bound_spec()
+    p = torch.from_numpy(payload).to(dev)
+    before, k1 = _route_counts(), extract.extract_windows.launches
+    res, s = step(p)
+    torch.cuda.synchronize()
+    assert extract.extract_windows.launches == k1 + 1
+    assert {k: v - before[k] for k, v in _route_counts().items()} == \
+        _k4_counts(routes)
     assert bool(s.found.all()) and not bool(s.frame_start.any())
     np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
-    cpu = FlagshipStep(make_frame_spec(CFG, torch.complex64, device="cpu",
+    _same_sync(rx.receive_batch(spec, tx.transmit(spec, p)), (res, s))
+    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
                                        fft_backend="pallas"))
     res_c, _ = cpu(torch.from_numpy(payload))
     assert torch.equal(res.mac_bytes.cpu(), res_c.mac_bytes)
+    assert _check_impaired(step, payload, rng, extra, amp, cfo, shift,
+                           cpu_rows=2) == _k4_counts(
+        {r: n // 2 for r, n in routes.items()})
 
 
 def test_pallas_complex128_takes_torch_fft(dev):
@@ -1156,6 +1180,54 @@ def test_pallas_complex128_takes_torch_fft(dev):
     torch.cuda.synchronize()
     assert dft.dft.launches == before
     assert torch.equal(res.mac_bytes, payload) and bool(s.found.all())
+
+
+def test_wideband_ct_step_on_card(dev):
+    """B = 128 frames of the 8k-QAM64 wideband layout under
+    fft_backend="ct": clean payloads exact at offset 0; each frame again at
+    a random offset in [0, 4096] with CFO 1e-5, amplitude 10 and 30 dB
+    AWGN, decoded exactly at its offset with K1 once and K4 never, sync
+    fields and bytes equal to the receive run eagerly; the first 4 rows'
+    equal to the CPU run."""
+    from c_ofdm_tpu_torch.models import rx, tx
+    cfg = ModemConfig(fft_size=8192, num_data_subc=4096, num_pilot_subc=32,
+                      cp_size=1024, num_symb=2, pr_sin_len=512, mod_type=6)
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device=dev,
+                                        fft_backend="ct"))
+    rng = np.random.default_rng(17)
+    payload = rng.integers(0, 256, (128, cfg.frame_bytes), dtype=np.uint8)
+    res, s = step(torch.from_numpy(payload).to(dev))
+    assert bool(s.found.all()) and not bool(s.frame_start.any())
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    frames = tx.transmit(step.bound_spec(), torch.from_numpy(payload).to(
+        dev)).cpu().numpy().astype(np.complex128)
+    n = cfg.frame_len + 4096
+    offs = rng.integers(0, 4097, 128)
+    caps = np.zeros((128, n), np.complex128)
+    for b, o in enumerate(offs):
+        caps[b, o:o + cfg.frame_len] = 10.0 * frames[b]
+    caps *= np.exp(2j * np.pi * 1e-5 * np.arange(n))
+    std = np.sqrt(float((np.abs(frames) ** 2).mean()) * 100.0
+                  * 10 ** (-30.0 / 10) / 2)
+    caps += std * (rng.standard_normal(caps.shape)
+                   + 1j * rng.standard_normal(caps.shape))
+    caps = caps.astype(np.complex64)
+    on_card = torch.from_numpy(caps).to(dev)
+    k1, k4 = extract.extract_windows.launches, dft.dft.launches
+    res, s = step.receive(on_card)
+    torch.cuda.synchronize()
+    assert (extract.extract_windows.launches, dft.dft.launches) == (k1 + 1,
+                                                                    k4)
+    assert bool(s.found.all())
+    np.testing.assert_array_equal(s.frame_start.cpu().numpy(), offs)
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy(), payload)
+    _same_sync(rx.receive_batch(step.bound_spec(), on_card), (res, s))
+    cpu = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
+                                       fft_backend="ct"))
+    res_c, s_c = cpu.receive(torch.from_numpy(caps[:4]))
+    for name in ("frame_start", "t2_begin", "pr_begin", "found"):
+        assert torch.equal(getattr(s, name)[:4].cpu(), getattr(s_c, name))
+    assert torch.equal(res.mac_bytes[:4].cpu(), res_c.mac_bytes)
 
 
 def _mac_frames(mac, B, seed):
@@ -1253,6 +1325,113 @@ def test_apply_channel_on_card_equals_cpu(dev):
     g2 = torch.Generator(device=dev).manual_seed(1)
     a = apply_channel(params, x.to(dev), generator=g1)
     assert torch.equal(a, apply_channel(params, x.to(dev), generator=g2))
+
+
+# the channel sets of tests/test_mac_channel.py's link loop, 64 frames each
+LINK_SETS = (
+    dict(snr_db=25.0, cfo=0.0, timing_offset=0),
+    dict(snr_db=20.0, cfo=3e-4, timing_offset=1234),
+    dict(snr_db=15.0, cfo=-2e-4, timing_offset=4096, quantize_mult=CFG.mult,
+         amplitude=80.0),
+    dict(snr_db=25.0, cfo=1e-4, timing_offset=500, multipath=(0.15 + 0.1j,),
+         amplitude=50.0),
+)
+
+
+def test_mac_link_batch_on_card(dev):
+    """256 MAC frames (seq 0-255) -> transmit -> apply_channel in the four
+    LINK_SETS (noise from a generator on the card) -> FlagshipStep.receive
+    -> read_soft: every frame at its set's timing offset, payload and seq
+    exact, CRC valid, K1 once; read_llr(soft_llrs) the same.  The second
+    set again with phi0 and noise drawn on the CPU: the sync fields and
+    every MacFrame field equal to the CPU run."""
+    from c_ofdm_tpu_torch.models import tx
+    from c_ofdm_tpu_torch.ops import modulation
+    step = FlagshipStep(make_frame_spec(CFG, torch.complex64, device=dev))
+    spec = step.bound_spec()
+    mac = tmac.Mac(frame_bytes=CFG.frame_bytes, spread=CFG.mod_type)
+    per = 64
+    B = per * len(LINK_SETS)
+    payload = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 256, (B, mac.payload), dtype=np.uint8)).to(dev)
+    params = [ChannelParams(capture_len=CFG.frame_len + 6144, **kw)
+              for kw in LINK_SETS]
+    g = torch.Generator(device=dev).manual_seed(21)
+    frames = tx.transmit(spec, mac.write(payload, torch.arange(B,
+                                                               device=dev)))
+    caps = torch.cat([apply_channel(p, frames[i * per:(i + 1) * per],
+                                    generator=g)
+                      for i, p in enumerate(params)])
+    k1 = extract.extract_windows.launches
+    res, s = step.receive(caps)
+    fr = mac.read_soft(res.constellation.real + res.constellation.imag)
+    torch.cuda.synchronize()
+    assert extract.extract_windows.launches == k1 + 1
+    assert bool(s.found.all())
+    np.testing.assert_array_equal(
+        s.frame_start.cpu().numpy(),
+        np.repeat([p.timing_offset for p in params], per))
+    assert bool(fr.valid.all()) and torch.equal(fr.payload, payload)
+    assert fr.seq.cpu().tolist() == list(range(B))
+    fl = mac.read_llr(modulation.soft_llrs(res.constellation, CFG.mod_type))
+    assert bool(fl.valid.all()) and torch.equal(fl.payload, payload)
+    assert torch.equal(fl.seq, fr.seq)
+
+    p, rows = params[1], slice(per, 2 * per)
+    gc = torch.Generator().manual_seed(22)
+    phi0 = torch.rand(per, generator=gc) * (2 * np.pi)
+    noise = torch.randn(per, caps.shape[-1], 2, generator=gc)
+    res_d, s_d = step.receive(apply_channel(p, frames[rows], phi0=phi0.to(dev),
+                                            noise=noise.to(dev)))
+    fr_d = mac.read_soft(res_d.constellation.real + res_d.constellation.imag)
+    cpu = FlagshipStep(make_frame_spec(CFG, torch.complex64, device="cpu"))
+    wire_c = mac.write(payload.cpu()[rows], torch.arange(per, 2 * per))
+    res_c, s_c = cpu.receive(apply_channel(
+        p, tx.transmit(cpu.bound_spec(), wire_c), phi0=phi0, noise=noise))
+    fr_c = mac.read_soft(res_c.constellation.real + res_c.constellation.imag)
+    for name in ("frame_start", "t2_begin", "pr_begin", "found"):
+        assert torch.equal(getattr(s_d, name).cpu(), getattr(s_c, name)), name
+    for name, a, b in zip(fr_c._fields, fr_c, fr_d):
+        assert torch.equal(a, b.cpu()), name
+    assert bool(fr_c.valid.all())
+    assert torch.equal(fr_c.payload, payload.cpu()[rows])
+
+
+@pytest.mark.parametrize("ppm", [20.0, -20.0])
+def test_mac_stream_under_sample_clock_offset_on_card(dev, ppm):
+    """12 MAC frames back to back after 900 silent samples, through
+    apply_channel on the card at a +-20 ppm sample clock (24 dB, CFO
+    1.5e-4, amplitude 60), fed to a StreamingReceiver a buffer at a time:
+    all 12 frames CRC-clean, in order, payloads exact; K2 twice a
+    buffer."""
+    from c_ofdm_tpu_torch.models import tx
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    mac = tmac.Mac(frame_bytes=CFG.frame_bytes, spread=CFG.mod_type)
+    n_frames, buf = 12, CFG.rx_buf_size * CFG.frame_len
+    payload = torch.from_numpy(np.random.default_rng(int(ppm) + 100).integers(
+        0, 256, (n_frames, mac.payload), dtype=np.uint8)).to(dev)
+    frames = tx.transmit(spec, mac.write(payload,
+                                         torch.arange(n_frames, device=dev)))
+    stream = torch.cat([torch.zeros(900, dtype=frames.dtype, device=dev),
+                        frames.reshape(-1)])
+    total = -(-stream.shape[0] // buf) * buf
+    cap = apply_channel(
+        ChannelParams(snr_db=24.0, cfo=1.5e-4, sco_ppm=ppm,
+                      capture_len=total, amplitude=60.0),
+        stream, generator=torch.Generator(device=dev).manual_seed(3))
+    rxr = streaming.StreamingReceiver(spec, max_frames=16)
+    k2 = extract.extract_windows_single.launches
+    outs = [rxr.feed(cap[i:i + buf]) for i in range(0, total, buf)]
+    torch.cuda.synchronize()
+    assert extract.extract_windows_single.launches == k2 + 2 * len(outs)
+    got = []
+    for out in outs:
+        fr = mac.read_soft(out.diag)
+        got += [(int(fr.seq[k]), bool(fr.valid[k]), fr.payload[k])
+                for k in torch.nonzero(out.valid).flatten().tolist()]
+    assert [g[:2] for g in got] == [(i, True) for i in range(n_frames)]
+    for i, (_, _, p) in enumerate(got):
+        assert torch.equal(p, payload[i])
 
 
 # ---- the apps on the card (python -m c_ofdm_tpu_torch tx / rx / loopback)
@@ -1368,13 +1547,75 @@ def test_loopback_app_on_card_launches_k1_once(dev, tmp_path, f64):
     assert extract.extract_windows.launches == before + 1
 
 
-def test_world_of_one_sharded_receiver_on_card_equals_cpu(dev):
-    """The sharded receiver in a world of one (no process group) on the
-    card: K3 twice per call (regions, then frames), K1 and K2 never, and
-    every field equal to the CPU run; frames straddling nothing, at both
-    ends of the capture, decode."""
+def test_rx_native_ingest_equals_the_replayed_file(dev, six_buffer_stream):
+    """rx --native-ingest on the card: the replay ring loops the file, so
+    its bytes and metrics rows equal rx of a file holding what the replay
+    yields (the file looped to whole buffers), the payload among them."""
+    d, payload = six_buffer_stream
+    n = CFG.rx_buf_size * CFG.frame_len
+    raw = np.fromfile(d / "s.bin", dtype=np.int16)
+    (d / "replay").mkdir()
+    np.resize(raw, (raw.size // (n * 2) + 1) * n * 2).tofile(
+        d / "replay" / "s.bin")
+    nat = _rx(d, "native", dev, ["--native-ingest"])
+    rep = _rx(d / "replay", "replay", dev)
+    assert nat[0] == rep[0] and payload in nat[0]
+    assert len(nat[1]) == len(rep[1]) >= 150
+    for g, w in zip(nat[1], rep[1]):
+        assert {k: g[k] for k in ("buf", "slot", "pos", "seq", "crc_ok")} \
+            == {k: w[k] for k in ("buf", "slot", "pos", "seq", "crc_ok")}
+        assert abs(g["cfo"] - w["cfo"]) <= 1e-5
+
+
+def test_ber_sweep_app_on_card(dev, tmp_path):
+    """ber-sweep of QAM16 at 12, 20 and 28 dB, 4 frames each: BER 0 at
+    28 dB and the EVM falling as the SNR rises."""
+    from c_ofdm_tpu_torch.apps import ber_sweep
+    rc, _ = _app(ber_sweep, ["--mods", "4", "--snrs", "12:29:8", "--frames",
+                             "4", "--out", str(tmp_path / "ber.jsonl"),
+                             "--device", str(dev)])
+    rows = [json.loads(ln) for ln in
+            (tmp_path / "ber.jsonl").read_text().splitlines()]
+    evms = [r["evm_rms"] for r in rows]
+    assert rc == 0 and [r["snr_db"] for r in rows] == [12.0, 20.0, 28.0]
+    assert rows[-1]["ber"] == 0.0 and evms == sorted(evms, reverse=True)
+
+
+def test_ingest_bench_to_device_runs_on_card(dev):
+    """ingest-bench --to-device pops 50 buffers into pinned memory and
+    copies each to the card, and prints its one JSON line."""
+    from c_ofdm_tpu_torch.apps import ingest_bench
+    rc, out = _app(ingest_bench, ["--buffers", "50", "--to-device"])
+    line = json.loads(out.strip().splitlines()[-1])
+    assert rc == 0 and line["metric"] == "ingest_samples_per_s_to_device"
+    assert line["value"] > 0
+
+
+@pytest.mark.parametrize("group", [None, "nccl"])
+def test_world_of_one_sharded_receiver_on_card_equals_cpu(dev, group):
+    """The sharded receiver in a world of one on the card, with no process
+    group or in an NCCL group of one (the outputs gathered through it): K3
+    twice per call (regions, then frames), K1 and K2 never, and every
+    field equal to the CPU run; frames straddling nothing, at both ends of
+    the capture, decode."""
+    import contextlib
+    import torch.distributed as dist
     from c_ofdm_tpu_torch.models import tx
-    from c_ofdm_tpu_torch.parallel import ingest, mesh, sharded
+    from c_ofdm_tpu_torch.parallel import ingest, launch, mesh, sharded
+
+    @contextlib.contextmanager
+    def world(where):
+        if where == "cpu" or group is None:
+            yield
+            return
+        dist.init_process_group(
+            group, init_method=f"tcp://localhost:{launch._free_port()}",
+            world_size=1, rank=0, device_id=dev)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
     tx_spec = make_frame_spec(CFG, torch.complex64, device="cpu")
     rng = np.random.default_rng(8)
     payload = rng.integers(0, 256, (4, CFG.frame_bytes), dtype=np.uint8)
@@ -1389,14 +1630,17 @@ def test_world_of_one_sharded_receiver_on_card_equals_cpu(dev):
     outs = {}
     for where in ("cpu", dev):
         spec = make_frame_spec(CFG, torch.complex64, device=where)
-        m = mesh.make_modem_mesh(1, 1, device=where)
-        recv = sharded.make_sharded_receiver(spec, m, 4)
-        block = ingest.make_global_capture(m, caps)
-        counts = [f.launches for f in (extract.extract_windows,
-                                       extract.extract_windows_single,
-                                       extract.extract_windows_multi)]
-        out = sharded.gather_outputs(m, recv(block))
-        torch.cuda.synchronize()
+        with world(where):
+            m = mesh.make_modem_mesh(1, 1, device=where)
+            assert (m.group is not None) == (where == dev and bool(group))
+            assert not m.staged
+            recv = sharded.make_sharded_receiver(spec, m, 4)
+            block = ingest.make_global_capture(m, caps)
+            counts = [f.launches for f in (extract.extract_windows,
+                                           extract.extract_windows_single,
+                                           extract.extract_windows_multi)]
+            out = sharded.gather_outputs(m, recv(block))
+            torch.cuda.synchronize()
         if where == dev:
             assert [f.launches - c for f, c in zip(
                 (extract.extract_windows, extract.extract_windows_single,
@@ -1442,18 +1686,87 @@ def _stream_blocks(C, S=3, seed=9):
         blocks[:, 0] if C == 0 else blocks))
 
 
+def _planted_rings(C, seed, dev, S=4, cfg=CFG):
+    """S consecutive buffers of ``cfg`` a channel, [S, n] (C = 0) or [S, C,
+    n] complex64 on ``dev``, made as the benchmark's stream traffic makes
+    them: int(0.8 S n / frame_len) MAC frames a channel (random payloads
+    written with seq 0, 1, ...) at multinomial random gaps, CFO 1e-4
+    cycles a sample, amplitude 60, AWGN at 26 dB SNR.  Returns (blocks,
+    per channel the planted starts of the frames that end inside the S
+    buffers, in order, the payloads [channels, frames, mac.payload])."""
+    from c_ofdm_tpu_torch.models import tx
+    spec = make_frame_spec(cfg, torch.complex64, device=dev)
+    mac = tmac.Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
+    fl, rows = cfg.frame_len, max(C, 1)
+    total = S * cfg.rx_buf_size * fl
+    rng = np.random.default_rng(seed)
+    nf = int(0.8 * total / fl)
+    payload = rng.integers(0, 256, (rows, nf, mac.payload), dtype=np.uint8)
+    gaps = np.stack([rng.multinomial(total - nf * fl,
+                                     np.ones(nf + 1) / (nf + 1))
+                     for _ in range(rows)])
+    starts = np.cumsum(gaps[:, :nf], axis=1) + fl * np.arange(nf)
+    wire = mac.write(torch.from_numpy(payload).to(dev),
+                     torch.arange(nf, device=dev))
+    frames = tx.transmit(spec, wire)
+    flat = torch.from_numpy(starts + total * np.arange(rows)[:, None]).to(dev)
+    idx = flat[..., None] + torch.arange(fl, device=dev)
+    sig = torch.zeros(rows * total, dtype=torch.complex64, device=dev)
+    sig[idx.reshape(-1)] = frames.reshape(-1)
+    k = torch.arange(total, dtype=torch.float64, device=dev)
+    rot = torch.polar(torch.full_like(k, 60.0), 2 * np.pi * 1e-4 * k)
+    std = torch.sqrt((frames.abs() ** 2).mean() * 3600
+                     * 10 ** (-26.0 / 10) / 2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn((2, rows, total), generator=g, device=dev)
+    sig = (sig.view(rows, total) * rot.to(torch.complex64)
+           + torch.complex(noise[0], noise[1]) * std)
+    blocks = sig.view(rows, S, -1).transpose(0, 1).contiguous()
+    truth = [[int(x) for x in st if x + fl < total] for st in starts]
+    return (blocks[:, 0].contiguous() if C == 0 else blocks), truth, payload
+
+
+def _assert_planted(outs, truth, payload, C, cfg=CFG):
+    """Every planted frame of ``_planted_rings`` decoded exactly once, in
+    order, at its planted start, and nothing else; read_soft of its slot
+    gives its seq and payload with the CRC valid."""
+    mac = tmac.Mac(frame_bytes=cfg.frame_bytes, spread=cfg.mod_type)
+    n, rows = cfg.rx_buf_size * cfg.frame_len, max(C, 1)
+    got = [[] for _ in range(rows)]
+    for b, out in enumerate(outs):
+        fr = mac.read_soft(out.diag)
+        pos = out.positions.cpu().reshape(rows, -1)
+        valid = out.valid.cpu().reshape(rows, -1)
+        seq = fr.seq.cpu().reshape(rows, -1)
+        ok = fr.valid.cpu().reshape(rows, -1)
+        pl = fr.payload.cpu().reshape(rows, valid.shape[1], -1)
+        for c in range(rows):
+            for k in torch.nonzero(valid[c]).flatten().tolist():
+                got[c].append((b * n - cfg.frame_len + int(pos[c, k])
+                               - cfg.t2sin_size, int(seq[c, k]),
+                               bool(ok[c, k]), pl[c, k].numpy()))
+    for c in range(rows):
+        assert [g[:3] for g in got[c]] == [
+            (s, i, True) for i, s in enumerate(truth[c])], c
+        for _, i, _, p in got[c]:
+            np.testing.assert_array_equal(p, payload[c, i])
+
+
 def _same(a, b):
     """Two outputs equal field for field (NaN where both are NaN)."""
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("backend", ["matmul", "pallas"])
+@pytest.mark.parametrize("backend", ["matmul", "pallas", "xla",
+                                     "matmul_bf16", "ct", "ct_bf16"])
 def test_flagship_graph_equals_eager(dev, backend):
-    """FlagshipStep replays one graph per call: every output field equal to
-    the eager step on the same inputs, K1 (and under pallas K4 twice) per
-    replay as per eager call, the outputs of call i unchanged by call i+1,
-    and a new batch size captures a second graph."""
+    """FlagshipStep replays one graph per call under each FFT backend:
+    every output field equal to the eager step on the same inputs, the
+    payloads exact, K1 (and under pallas K4 twice; under the others never)
+    per replay as per eager call, the outputs of call i unchanged by call
+    i+1, transmit_jit -> receive_batch_jit equal to the step's graph, and a
+    new batch size captures a second graph."""
     from c_ofdm_tpu_torch.models import rx, tx
     from c_ofdm_tpu_torch.utils import graphs
     step = FlagshipStep(make_frame_spec(CFG, torch.complex64, device=dev,
@@ -1490,21 +1803,32 @@ def test_flagship_graph_equals_eager(dev, backend):
     _same(got[0][0], again[0])
     for p, (res, _) in zip(payloads, got):        # call i kept its outputs
         assert torch.equal(res.mac_bytes, p)
+    jit = rx.receive_batch_jit(spec, tx.transmit_jit(spec, payloads[0]))
+    _same(got[0][0], jit[0])
+    _same(got[0][1], jit[1])
     step(payloads[1][:8])
     assert len(step.graphs.graphs) == 2
     step.to(dev)
     assert not step.graphs.graphs
 
 
-@pytest.mark.parametrize("C", [0, 8])
-def test_streaming_graph_equals_eager(dev, C):
+@pytest.mark.parametrize("C,backend,geometry", [
+    (0, "matmul", "stock"), (8, "matmul", "stock"), (8, "pallas", "stock"),
+    (0, "pallas", "1536")])
+def test_streaming_graph_equals_eager(dev, C, backend, geometry):
     """StreamingReceiver.feed replays one graph per buffer, the state
     carried in the module's buffers: every output and state field equal to
     eager process_buffer over the same buffers, the outputs of buffer i
-    unchanged after buffer i+1, K2 (C = 0) or K3 (C = 8) twice per replay."""
-    from c_ofdm_tpu_torch.utils import graphs
-    spec = make_frame_spec(CFG, torch.complex64, device=dev)
-    blocks = _stream_blocks(C).to(dev)
+    unchanged after buffer i+1, K2 (C = 0) or K3 (C = 8) twice per replay
+    and K4 once under pallas (on the geometry's route: radix at the stock
+    layout, mixed at 1536 points), never otherwise.  The buffers are
+    MAC-framed rings (``_planted_rings``): every planted frame decodes
+    exactly once, in order, at its start, CRC-clean."""
+    cfg, _, routes = PALLAS_GEOMETRIES[geometry][:3]
+    route = next(iter(routes))
+    spec = make_frame_spec(cfg, torch.complex64, device=dev,
+                           fft_backend=backend)
+    blocks, truth, payload = _planted_rings(C, 30 + C, dev, cfg=cfg)
     state = streaming.init_state(spec, channels=C)
     want = []
     for b in blocks:
@@ -1514,15 +1838,19 @@ def test_streaming_graph_equals_eager(dev, C):
     fn = extract.extract_windows_multi if C else extract.extract_windows_single
     got, per = [], []
     for b in blocks:
-        n0 = fn.launches
+        n0 = (fn.launches, _route_counts())
         got.append(rxr.feed(b))
-        per.append(fn.launches - n0)
+        per.append((fn.launches - n0[0],
+                    dft.dft.launches - n0[1]["launches"],
+                    _route_counts()[route] - n0[1][route]))
     torch.cuda.synchronize()
-    assert per == [2] * len(blocks) and len(rxr.graphs.graphs) == 1
+    k4 = int(backend == "pallas")
+    assert per == [(2, k4, k4)] * len(blocks)
+    assert len(rxr.graphs.graphs) == 1
     for w, g in zip(want, got):
         _same(w, g)
     _same(state, rxr.state)
-    assert int(sum(o.num_found.sum() for o in got)) > 0
+    _assert_planted(got, truth, payload, C, cfg)
     assert rxr.graphs.graphs[next(iter(rxr.graphs.graphs))].delta
 
 
@@ -1684,46 +2012,57 @@ def _sharded_inputs(dev, seed=12):
     return caps[:, :n].contiguous(), caps[:, n:].contiguous(), payload
 
 
-@pytest.mark.parametrize("sync_mode", ["gated", "dense"])
-def test_sharded_receiver_graph_equals_eager(dev, sync_mode):
+@pytest.mark.parametrize("sync_mode,backend", [
+    ("gated", "matmul"), ("dense", "matmul"), ("gated", "pallas")])
+def test_sharded_receiver_graph_equals_eager(dev, sync_mode, backend):
     """The world-of-one receiver replays one graph per call (halo_valid
     False: no right neighbour), every field equal to the eager body; the
     halo_valid True graph, driven through ``replay_local`` with a real
     halo, equals its eager body too and decodes the straddling frame.  One
     graph per key; later calls capture nothing and make no host sync; K3
     launches per replay as per eager call (gated: regions and frames;
-    dense: frames)."""
+    dense: frames), and K4 once under pallas (the radix route: the demod
+    of every window), never otherwise."""
     from c_ofdm_tpu_torch.parallel import mesh, sharded
-    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    spec = make_frame_spec(CFG, torch.complex64, device=dev,
+                           fft_backend=backend)
     block, halo, payload = _sharded_inputs(dev)
     K = 6
     recv = sharded.make_sharded_receiver(
         spec, mesh.make_modem_mesh(1, 1, device=dev), K, sync_mode)
     k3 = extract.extract_windows_multi
+    k4 = int(backend == "pallas")
+
+    def launches():
+        return (k3.launches, dft.dft.launches, dft.dft.radix_launches)
+
+    def since(n0):
+        return tuple(a - b for a, b in zip(launches(), n0))
+
     want = {}
     for valid in (False, True):
-        n0 = k3.launches
+        n0 = launches()
         want[valid] = sharded._shard_body(
             spec, valid, K, sync_mode, block,
             halo if valid else torch.zeros_like(halo))
-        per_eager = k3.launches - n0
-    assert per_eager == (2 if sync_mode == "gated" else 1)
-    n0 = k3.launches
+        per_eager = since(n0)
+    assert per_eager == (2 if sync_mode == "gated" else 1, k4, k4)
+    n0 = launches()
     got = recv(block)                           # warm-up, capture, replay
     torch.cuda.synchronize()
-    assert k3.launches - n0 == per_eager
+    assert since(n0) == per_eager
     got_true = sharded.replay_local(recv.graphs, spec, block, halo, True, K,
                                     sync_mode)
     keys = {key[0][1] for key in recv.graphs.graphs}
     assert keys == {False, True} and len(recv.graphs.graphs) == 2
     held = dict(recv.graphs.graphs)
-    n0 = k3.launches
+    n0 = launches()
     with _no_sync():
         again = recv(block)
         again_true = sharded.replay_local(recv.graphs, spec, block, halo,
                                           True, K, sync_mode)
     torch.cuda.synchronize()
-    assert k3.launches - n0 == 2 * per_eager
+    assert since(n0) == tuple(2 * n for n in per_eager)
     assert recv.graphs.graphs == held            # nothing captured again
     for out in (got, again):
         _same(want[False], out)
@@ -1769,6 +2108,121 @@ def test_sharded_stream_graph_equals_streaming_receiver(dev):
     assert int(sum(o.num_found.sum() for o in got)) > 0
 
 
+def test_gloo_world_on_one_card_equals_process_buffer(dev):
+    """4 gloo ranks all on the one card (``launch.receive_rank``), mesh
+    {channel: 2, time: 2}, the halo staged through host memory: every
+    rank's gathered view equal; every frame at its planted start with its
+    bytes (one a channel straddles the time boundary, one ends at the
+    capture end), as process_buffer over the whole capture on the card
+    finds them; K3 twice a rank and no other kernel; one graph a rank,
+    halo_valid on the left blocks only."""
+    from c_ofdm_tpu_torch.models import tx
+    from c_ofdm_tpu_torch.parallel import launch
+    nc, nt, C, K = 2, 2, 4, 6
+    fl = CFG.frame_len
+    block = 8 * fl
+    total = nt * block
+    starts = [500, block - fl // 3, block + 9000, total - fl]
+    rng = np.random.default_rng(24)
+    payload = rng.integers(0, 256, (C, len(starts), CFG.frame_bytes),
+                           dtype=np.uint8)
+    frames = tx.transmit(make_frame_spec(CFG, torch.complex64, device="cpu"),
+                         torch.from_numpy(payload)).numpy()
+    caps = 0.05 * (rng.standard_normal((C, total))
+                   + 1j * rng.standard_normal((C, total)))
+    for c in range(C):
+        for i, s in enumerate(starts):
+            caps[c, s:s + fl] += 60.0 * frames[c, i]
+    caps = caps.astype(np.complex64)
+    ranks = launch.run_world(
+        nc * nt, "c_ofdm_tpu_torch.parallel.launch:receive_rank",
+        backend="gloo", device=str(dev),
+        args=(CFG, torch.complex64, "matmul", caps, nc, nt, K), timeout=300)
+    for r, res in enumerate(ranks):
+        assert res["coords"] == divmod(r, nt)
+        assert res["launches"] == dict(NO_LAUNCHES, extract_windows_multi=2)
+        assert [g["static"] for g in res["graphs"]] == [
+            [res["coords"][1] < nt - 1, K, "gated"]]
+        for k, v in res["out"].items():
+            np.testing.assert_array_equal(v, ranks[0]["out"][k], err_msg=k)
+    out = ranks[0]["out"]
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    _, ref = streaming.process_buffer(
+        spec, streaming.init_state(spec, channels=C),
+        torch.from_numpy(caps).to(dev), len(starts) + 2)
+    for c in range(C):
+        gpos = out["positions"][c] + (np.arange(nt) * block)[:, None]
+        v = out["valid"][c]
+        got = sorted((int(p) - CFG.t2sin_size, bytes(b))
+                     for p, b in zip(gpos[v], out["mac_bytes"][c][v]))
+        assert got == [(s, payload[c, i].tobytes())
+                       for i, s in enumerate(starts)], c
+        rv = ref.valid[c].cpu().numpy()
+        single = sorted((int(p) - fl - CFG.t2sin_size, bytes(b)) for p, b in
+                        zip(ref.positions[c].cpu().numpy()[rv],
+                            ref.mac_bytes[c].cpu().numpy()[rv]))
+        assert single == got, c
+
+
+def test_channel_sharded_stream_world_on_one_card(dev):
+    """The channel-sharded stream in a world of 2 gloo ranks on the one
+    card (``launch.stream_rank``), mesh {channel: 2, time: 1}, a graph
+    replay a buffer, on 8 channels of MAC-framed rings: every buffer's
+    gathered output equal to StreamingReceiver(channels=8) on the card
+    (diag and cfo within 1e-4: each rank's products are 4 channels wide),
+    the final state exactly; every planted frame decoded; K3 twice a
+    buffer a rank, no other kernel; one graph a rank."""
+    from c_ofdm_tpu_torch.parallel import launch
+    blocks, truth, payload = _planted_rings(8, 38, dev)
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    rxr = streaming.StreamingReceiver(spec, channels=8)
+    want = [rxr.feed(b) for b in blocks]
+    ranks = launch.run_world(
+        2, "c_ofdm_tpu_torch.parallel.launch:stream_rank", backend="gloo",
+        device=str(dev), args=(CFG, torch.complex64, "matmul",
+                               blocks.cpu().numpy(), 2, 1, 0), timeout=300)
+    for res in ranks:
+        assert res["launches"] == dict(
+            NO_LAUNCHES, extract_windows_multi=2 * len(blocks))
+        assert len(res["graphs"]) == 1
+        outs = [streaming.StreamOut(**{k: torch.from_numpy(v)
+                                       for k, v in o.items()})
+                for o in res["outs"]]
+        for w, g in zip(want, outs):
+            w = streaming.StreamOut(*(t.cpu() for t in w))
+            for name in ("positions", "valid", "num_found"):
+                assert torch.equal(getattr(w, name), getattr(g, name)), name
+            v = w.valid
+            assert torch.equal(w.mac_bytes[v], g.mac_bytes[v])
+            for name in ("diag", "cfo"):
+                torch.testing.assert_close(getattr(g, name)[v],
+                                           getattr(w, name)[v],
+                                           rtol=0, atol=1e-4)
+        for k, v in res["state"].items():
+            np.testing.assert_array_equal(
+                v, getattr(rxr.state, k).cpu().numpy(), err_msg=k)
+    _assert_planted(outs, truth, payload, 8)
+
+
+def test_scaling_bench_app_on_card(dev):
+    """scaling-bench --devices 1 --channels 8 --frames-per-block 40: an
+    NCCL world of one rank on the card finds all 8 planted frames and
+    prints its JSON line; --devices one more than the cards raises the
+    mesh's ValueError."""
+    import io
+    from c_ofdm_tpu_torch.apps import scaling_bench
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, text = _app(scaling_bench, ["--devices", "1", "--channels", "8",
+                                        "--frames-per-block", "40"])
+    line = json.loads(text.strip().splitlines()[-1])
+    assert rc == 0 and line["devices"] == [1]
+    assert "(8 frames)" in err.getvalue(), err.getvalue()
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"need {n} devices, have {n - 1}"):
+        _app(scaling_bench, ["--devices", str(n), "--channels", "8"])
+
+
 # ---- the trace recorder (io/trace.py) on the card
 
 STAGE_SPANS = ["sync", "extract", "recover", "dft", "equalize"]
@@ -1784,10 +2238,60 @@ def recorder_off():
     trace.drain()
 
 
+# cuGraphNodeGetType's CUgraphNodeType values
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait event", 7: "record event",
+              10: "mem alloc", 11: "mem free"}
+
+
+def _captured(fn):
+    """fn(0) captured into a CUDA graph kept whole (``keep_graph=True``)
+    on a side stream, after a first call there (a library's lazy set-up,
+    such as a cuBLAS workspace, is never captured).  A call that
+    synchronises with the host or copies from it raises."""
+    from c_ofdm_tpu_torch.utils import graphs
+    s = graphs._side_stream(torch.device("cuda",
+                                         torch.cuda.current_device()))
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn(0)
+    s.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=s):
+        fn(0)
+    return g
+
+
 def _kernel_nodes(fn):
-    """{node kind: count} of fn(0) captured whole (chip_smoke.py)."""
-    from chip_smoke import graph_kernels
-    return graph_kernels(fn)
+    """{node kind: count} of one call of fn(0), exact: the call captured
+    whole (``_captured``) and its nodes counted by type through libcuda's
+    graph calls (cuGraphGetNodes, cuGraphNodeGetType).  A graph holds every launch
+    of the call, where torch.profiler now and then drops a record.  A call
+    that cannot be captured, or a failed query, raises."""
+    import collections
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    g = _captured(fn)
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(graph, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    if rc == 0:
+        rc = cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count))
+    assert rc == 0, f"cuGraphGetNodes failed ({rc})"
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rc = cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        assert rc == 0, f"cuGraphNodeGetType failed ({rc})"
+        kinds[NODE_KINDS.get(kind.value, str(kind.value))] += 1
+    del g
+    return dict(kinds)
 
 
 def test_untraced_capture_holds_no_recorder_node(dev, recorder_off,

@@ -28,6 +28,7 @@ from c_ofdm_tpu.parallel import sharded as jsharded
 from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.parallel import launch
 
+from test_torch_cuda import NO_LAUNCHES
 from test_torch_parallel import (CFG, _specs, as_numpy, assert_same,
                                  build_capture, decoded)
 
@@ -122,7 +123,7 @@ def test_ranks_sit_where_jax_devices_sit(world, jax_outs, port_outs):
         assert (c, t) == divmod(r, N_TIME)
         assert jm.devices[c, t].id == r
         np.testing.assert_array_equal(res["block"], shards[r])
-        assert res["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+        assert res["launches"] == NO_LAUNCHES
 
 
 def _global_starts(out, c):
@@ -219,4 +220,4 @@ def test_channel_sharded_stream_matches_jax_and_unsharded(stream_blocks):
         np.testing.assert_array_equal(st["carry"], jc[..., 0] + 1j * jc[..., 1])
         np.testing.assert_array_equal(st["carry"], tstate.carry.numpy())
         assert st["frames_seen"].tolist() == [3] * STREAM_C
-        assert res["launches"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+        assert res["launches"] == NO_LAUNCHES
