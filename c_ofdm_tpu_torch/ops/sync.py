@@ -7,19 +7,24 @@ batch at once and reduced with a first-hit argmax, which reproduces the
 serial first-hit semantics exactly.  The detector projects each 256-sample
 block onto only the masked bins (a skinny partial-DFT product) and takes the
 total energy from Parseval in the time domain.  The streaming receiver adds
-the 50%-overlap hop track, the FFT and overlap-save branches of
+the 50%-overlap hop track (on CUDA tensors one hand-written kernel,
+``csrc/t2_hop_track.cu``), the FFT and overlap-save branches of
 ``matched_filter_scores`` (``torch.fft``) and the sliding-window sidelobe
 suppression.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
 import torch
 
 from ..io import trace
+from ..utils import graphs
+from . import _kernels
 from . import fft as fftops
 
 # the shortest chunk of the overlap-save matched filter (long captures);
@@ -83,11 +88,12 @@ def _t2_hop_np(t2_mask: np.ndarray):
     return w, np.where(bins % 2, -1.0, 1.0)
 
 
-def t2_ratio_track_hop(spec, capture: torch.Tensor) -> torch.Tensor:
-    """Per-window masked/total energy ratio at 50% window overlap
-    (hop = t2sin_size/2).  capture [..., n] -> [..., nwin], window w starts
-    at sample w*hop.  With 50% overlap some window always covers >= 3/4 of a
-    burst, whatever its alignment to the blocks.
+def t2_ratio_track_hop_ref(spec, capture: torch.Tensor) -> torch.Tensor:
+    """Plain version of the hop track: per-window masked/total energy
+    ratio at 50% window overlap (hop = t2sin_size/2).  capture [..., n] ->
+    [..., nwin], window w starts at sample w*hop.  With 50% overlap some
+    window always covers >= 3/4 of a burst, whatever its alignment to the
+    blocks.
 
     Fused half-block form: each HALF-block h is projected onto the masked
     bins with the truncated basis, A_h[b] = sum_{m<hop} x[h*hop+m]
@@ -110,6 +116,108 @@ def t2_ratio_track_hop(spec, capture: torch.Tensor) -> torch.Tensor:
     h = (xr * xr + xi * xi).sum(-1)                  # [..., nh]
     total = size * (h[..., :-1] + h[..., 1:])
     return torch.where(total > 0, masked / torch.clamp(total, min=1e-30), 0.0)
+
+
+@functools.cache
+def _hop_lib() -> ctypes.CDLL:
+    lib = _kernels.library("t2_hop_track")
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.c_ofdm_hop_prepare.argtypes = [i, i, i, ctypes.POINTER(i),
+                                       ctypes.POINTER(i)]
+    lib.c_ofdm_hop_track.argtypes = [vp, vp, ll, ll, ll, vp, vp, vp, ll, ll,
+                                     i, i, i, i, i, i, vp]
+    lib.c_ofdm_hop_error_string.argtypes = [i]
+    lib.c_ofdm_hop_error_string.restype = ctypes.c_char_p
+    for fn in (lib.c_ofdm_hop_prepare, lib.c_ofdm_hop_track):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _hop_launch(device_index: int, hop: int, nbins: int,
+                real_bytes: int) -> tuple[int, int]:
+    """(warps a bin group, blocks the device holds at once) of the kernel
+    for this geometry and real type, as ``c_ofdm_hop_prepare`` picks them
+    from the device's limits (it also sets the kernel's shared memory
+    limit).  Once per process, device and geometry, at the first launch,
+    which is never inside a CUDA-graph capture (a captured call warms up
+    first)."""
+    lib = _hop_lib()
+    warps, resident = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = lib.c_ofdm_hop_prepare(hop, nbins, real_bytes,
+                                    ctypes.byref(warps),
+                                    ctypes.byref(resident))
+    if rc != 0:
+        raise RuntimeError(f"t2_ratio_track_hop: no launch fits {nbins} bins "
+                           f"at hop {hop} ({8 * real_bytes}-bit): "
+                           f"{lib.c_ofdm_hop_error_string(rc).decode()}")
+    return warps.value, resident.value
+
+
+def t2_ratio_track_hop(spec, capture: torch.Tensor) -> torch.Tensor:
+    """The hop track (see ``t2_ratio_track_hop_ref``): capture [..., n]
+    complex -> [..., n // hop - 1] ratios, hop = t2sin_size/2.
+
+    CUDA tensors: one launch of ``csrc/t2_hop_track.cu`` on the current
+    stream (none where the output is empty), which reads the contiguous ring
+    once and writes only the ratios; it adds one to
+    ``t2_ratio_track_hop.launches``.  CPU tensors:
+    ``t2_ratio_track_hop_ref``.  Either adds rows x windows to the
+    recorder's ``hop_windows``."""
+    hop = spec.cfg.t2sin_size // 2
+    n = capture.shape[-1]
+    lead = capture.shape[:-1]
+    rows = math.prod(lead)
+    nwin = max(n // hop - 1, 0)
+    trace.count("hop_windows", rows * nwin)
+    if capture.device.type == "cpu":
+        return t2_ratio_track_hop_ref(spec, capture)
+    if capture.device.type != "cuda":
+        raise ValueError(f"t2_ratio_track_hop: no kernel for device "
+                         f"{capture.device}")
+    basis = spec.tensors["t2_hop_basis"]
+    sgn = spec.tensors["t2_hop_sign"]
+    weight = spec.tensors["t2_weights"]
+    if capture.dtype not in (torch.complex64, torch.complex128):
+        raise TypeError(f"t2_ratio_track_hop: capture must be complex64 or "
+                        f"complex128, got {capture.dtype}")
+    rdt = capture.real.dtype
+    if basis.dtype != rdt or basis.device != capture.device:
+        raise ValueError(f"t2_ratio_track_hop: the spec's constants are "
+                         f"{basis.dtype} on {basis.device}, the capture "
+                         f"{capture.dtype} on {capture.device}")
+    if not (capture.is_contiguous() and sgn.is_contiguous()
+            and weight.is_contiguous()):
+        raise ValueError("t2_ratio_track_hop: capture, t2_hop_sign and "
+                         "t2_weights must be contiguous")
+    out = torch.empty((*lead, nwin), dtype=rdt, device=capture.device)
+    if rows == 0 or nwin == 0:
+        return out
+    nbins = basis.shape[-1]
+    dev = capture.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    warps, resident = _hop_launch(dev, hop, nbins, rdt.itemsize)
+    lib = _hop_lib()
+    with torch.cuda.device(capture.device):
+        stream = torch.cuda.current_stream(capture.device).cuda_stream
+        rc = lib.c_ofdm_hop_track(
+            capture.data_ptr(), basis.data_ptr(), *basis.stride(),
+            sgn.data_ptr(), weight.data_ptr(), out.data_ptr(), rows, n, hop,
+            nbins, warps, resident, rdt.itemsize, spec.cfg.t2sin_size,
+            stream)
+    if rc != 0:
+        why = ("refused the shape" if rc < 0
+               else lib.c_ofdm_hop_error_string(rc).decode())
+        raise RuntimeError(f"t2_ratio_track_hop kernel launch failed: {why} "
+                           f"(rows={rows}, n={n}, hop={hop}, nbins={nbins})")
+    t2_ratio_track_hop.launches += 1
+    return out
+
+
+t2_ratio_track_hop.launches = 0
+graphs.counted(t2_ratio_track_hop)
 
 
 def first_above(track: torch.Tensor, level: float):

@@ -31,7 +31,7 @@ from c_ofdm_tpu_torch.channel.sim import ChannelParams, apply_channel
 from c_ofdm_tpu_torch.mac import mac as tmac
 from c_ofdm_tpu_torch.models import streaming
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
-from c_ofdm_tpu_torch.ops import dft, extract, fft
+from c_ofdm_tpu_torch.ops import dft, extract, fft, sync
 
 pytestmark = pytest.mark.cuda
 
@@ -57,7 +57,8 @@ def _dvbt2(n):
 
 # a rank's launches (``parallel/launch.py``) with no kernel launched
 NO_LAUNCHES = dict.fromkeys(["extract_windows", "extract_windows_single",
-                             "extract_windows_multi", "dft"], 0)
+                             "extract_windows_multi", "dft",
+                             "t2_ratio_track_hop"], 0)
 
 
 @pytest.fixture
@@ -312,6 +313,111 @@ def test_gated_buffer_on_card_equals_cpu(dev):
     assert int(cpu.num_found.sum()) == 4
     assert torch.equal(card.mac_bytes.cpu()[valid], cpu.mac_bytes[valid])
     np.testing.assert_array_equal(cpu.mac_bytes[valid].numpy(), payload)
+
+
+def _hop_rings(spec, lead, n, dtype, dev, seed):
+    """Noise with the config's two-tone burst planted every 7 bursts + 13
+    samples (ratios up to ~1 at every alignment to the half-blocks); the
+    second of three or more rows all zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((*lead, n), dtype=dtype, device=dev, generator=g)
+    size = spec.cfg.t2sin_size
+    burst = spec.tensors["t2_burst"].to(dtype)
+    for s in range(0, n - size, 7 * size + 13):
+        x[..., s:s + size] += 4 * burst
+    if lead and lead[0] > 2:
+        x[1] = 0
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("t2sin", [128, 256, 512])
+def test_hop_track_kernel_matches_plain_version(dev, t2sin, dtype):
+    """The hop-track kernel against t2_ratio_track_hop_ref on the card: 64
+    rings of carry + buffer with three all-zero rows (ratio exactly 0),
+    one ring with no leading axis whose length is not a multiple of hop
+    (odd, so complex64 takes 8-byte loads), the same ring from its second
+    sample (8-byte aligned), and short rings whose tiles span rows.  Within
+    1e-5 in complex64 (float32 sums of hop terms in another order, on
+    ratios in [0, 1]) and 1e-12 in complex128; one launch a call."""
+    cfg = ModemConfig(t2sin_size=t2sin)
+    spec = make_frame_spec(cfg, dtype, device=dev)
+    hop = t2sin // 2
+    ring_len = cfg.frame_len * (cfg.rx_buf_size + 1)
+    single = _hop_rings(spec, (), ring_len + 37, dtype, dev, 2)
+    cases = [_hop_rings(spec, (64,), ring_len, dtype, dev, 1), single,
+             single[1:], _hop_rings(spec, (3,), 5000, dtype, dev, 3)]
+    cases[0][2:4] = 0
+    atol = 1e-5 if dtype == torch.complex64 else 1e-12
+    for x in cases:
+        before = sync.t2_ratio_track_hop.launches
+        got = sync.t2_ratio_track_hop(spec, x)
+        want = sync.t2_ratio_track_hop_ref(spec, x)
+        torch.cuda.synchronize()
+        assert sync.t2_ratio_track_hop.launches == before + 1
+        assert got.shape == want.shape == (*x.shape[:-1],
+                                           x.shape[-1] // hop - 1)
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+        assert float(want.max()) > 0.85
+        if x.dim() == 2 and x.shape[0] > 2:
+            assert not bool(got[1].any())
+    assert not bool(got[1].any()) and not bool(cases[0][2:4].any())
+    empty = sync.t2_ratio_track_hop(spec, torch.zeros((0, ring_len),
+                                                      dtype=dtype, device=dev))
+    assert empty.shape == (0, ring_len // hop - 1)
+
+
+def test_hop_track_rejects_what_it_does_not_take(dev):
+    """Strided rings, a ring in another precision than the spec's, real
+    rings; and a geometry whose basis, or whose bin groups' threads, no
+    block of the device holds (the kernel's own set-up refuses it)."""
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    x = torch.zeros((2, 4096), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        sync.t2_ratio_track_hop(spec, x[:, ::2])
+    with pytest.raises(ValueError):
+        sync.t2_ratio_track_hop(spec, x.to(torch.complex128))
+    with pytest.raises(TypeError):
+        sync.t2_ratio_track_hop(spec, x.real.contiguous())
+    with pytest.raises(RuntimeError, match="no launch fits"):
+        sync._hop_launch(dev.index, 4096, 22, 8)
+    with pytest.raises(RuntimeError, match="no launch fits"):
+        sync._hop_launch(dev.index, 128, 1200, 4)
+    warps, resident = sync._hop_launch(dev.index, 128, 22, 4)
+    assert warps == 2 and resident >= 1
+
+
+def test_c64_stream_counts_one_hop_launch_a_feed(dev, recorder_off):
+    """A captured 64-channel stream: each feed (a graph replay) adds one
+    hop-track launch and, with the recorder on, 64 x 1926 hop windows;
+    its positions, flags and bytes equal the CPU run's on MAC-framed rings,
+    and every planted frame decodes."""
+    trace = recorder_off
+    blocks, truth, payload = _planted_rings(64, 41, dev, S=2)
+    spec = make_frame_spec(CFG, torch.complex64, device=dev)
+    cpu_spec = make_frame_spec(CFG, torch.complex64, device="cpu")
+    trace.enable()
+    rxr = streaming.StreamingReceiver(spec, channels=64)
+    got = []
+    for b in blocks:
+        before = sync.t2_ratio_track_hop.launches
+        got.append(rxr.feed(b))
+        assert sync.t2_ratio_track_hop.launches == before + 1
+    torch.cuda.synchronize()
+    counts = trace.drain()["counts"]
+    trace.disable()
+    nwin = CFG.frame_len * (CFG.rx_buf_size + 1) // (CFG.t2sin_size // 2) - 1
+    assert nwin == 1926
+    assert counts["hop_windows"] == len(blocks) * 64 * nwin
+    assert len(rxr.graphs.graphs) == 1
+    cpu = streaming.StreamingReceiver(cpu_spec, channels=64)
+    for b, g in zip(blocks, got):
+        w = cpu.feed(b.cpu())
+        for name in ("positions", "valid", "num_found"):
+            assert torch.equal(getattr(g, name).cpu(), getattr(w, name)), name
+        assert torch.equal(g.mac_bytes.cpu()[w.valid], w.mac_bytes[w.valid])
+    _assert_planted(got, truth, payload, 64)
 
 
 def _route_counts():
@@ -2114,8 +2220,8 @@ def test_gloo_world_on_one_card_equals_process_buffer(dev):
     rank's gathered view equal; every frame at its planted start with its
     bytes (one a channel straddles the time boundary, one ends at the
     capture end), as process_buffer over the whole capture on the card
-    finds them; K3 twice a rank and no other kernel; one graph a rank,
-    halo_valid on the left blocks only."""
+    finds them; K3 twice and the hop track once a rank and no other
+    kernel; one graph a rank, halo_valid on the left blocks only."""
     from c_ofdm_tpu_torch.models import tx
     from c_ofdm_tpu_torch.parallel import launch
     nc, nt, C, K = 2, 2, 4, 6
@@ -2140,7 +2246,8 @@ def test_gloo_world_on_one_card_equals_process_buffer(dev):
         args=(CFG, torch.complex64, "matmul", caps, nc, nt, K), timeout=300)
     for r, res in enumerate(ranks):
         assert res["coords"] == divmod(r, nt)
-        assert res["launches"] == dict(NO_LAUNCHES, extract_windows_multi=2)
+        assert res["launches"] == dict(NO_LAUNCHES, extract_windows_multi=2,
+                                       t2_ratio_track_hop=1)
         assert [g["static"] for g in res["graphs"]] == [
             [res["coords"][1] < nt - 1, K, "gated"]]
         for k, v in res["out"].items():
@@ -2170,8 +2277,8 @@ def test_channel_sharded_stream_world_on_one_card(dev):
     replay a buffer, on 8 channels of MAC-framed rings: every buffer's
     gathered output equal to StreamingReceiver(channels=8) on the card
     (diag and cfo within 1e-4: each rank's products are 4 channels wide),
-    the final state exactly; every planted frame decoded; K3 twice a
-    buffer a rank, no other kernel; one graph a rank."""
+    the final state exactly; every planted frame decoded; K3 twice and the
+    hop track once a buffer a rank, no other kernel; one graph a rank."""
     from c_ofdm_tpu_torch.parallel import launch
     blocks, truth, payload = _planted_rings(8, 38, dev)
     spec = make_frame_spec(CFG, torch.complex64, device=dev)
@@ -2183,7 +2290,8 @@ def test_channel_sharded_stream_world_on_one_card(dev):
                                blocks.cpu().numpy(), 2, 1, 0), timeout=300)
     for res in ranks:
         assert res["launches"] == dict(
-            NO_LAUNCHES, extract_windows_multi=2 * len(blocks))
+            NO_LAUNCHES, extract_windows_multi=2 * len(blocks),
+            t2_ratio_track_hop=len(blocks))
         assert len(res["graphs"]) == 1
         outs = [streaming.StreamOut(**{k: torch.from_numpy(v)
                                        for k, v in o.items()})
@@ -2366,7 +2474,8 @@ def test_traced_replay_equals_untraced_and_records(dev, recorder_off,
     state: equal outputs and state; the traced graph is its own key; each
     traced call is an entry span holding copy_in, launch and clone (the
     first also capture, labelled with the key); the work counts replay
-    exactly (K x C and max_frames x C a buffer) and the hit count equals
+    exactly (K x C, max_frames x C and 1926 hop windows x C a buffer) and
+    the hit count equals
     the valid slots; the profiler's device trace shows each replay's six
     marks in order, split by stage_split with none dropped."""
     from torch.profiler import ProfilerActivity, profile
@@ -2402,6 +2511,7 @@ def test_traced_replay_equals_untraced_and_records(dev, recorder_off,
         "regions_scored": 4 * 8 * K,
         "slots_demodulated": 4 * 8 * rxr.max_frames, "mf_chunks": 0,
         "cfo_windows": 4 * 8 * rxr.max_frames * CFG.num_pilot_subc,
+        "hop_windows": 4 * 8 * 1926,
         "hits_accepted": int(sum(int(o.valid.sum()) for o in got))}
     assert recorded["counts"]["hits_accepted"] > 0
     prof.export_chrome_trace(str(tmp_path / "t.json"))

@@ -8,6 +8,7 @@ float64 results by ~1e-13 at these magnitudes).
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -385,6 +386,33 @@ def test_hop_track_matches(kw, dtype_name):
                                        // (js.cfg.t2sin_size // 2) - 1)
     np.testing.assert_allclose(want, got, rtol=0,
                                atol=ATOL128 if dtype_name == "c128" else 1e-5)
+
+
+@pytest.mark.parametrize("dtype_name", ["c64", "c128"])
+@pytest.mark.parametrize("lead", [(), (3,), (0,)])
+def test_hop_track_on_cpu_is_the_plain_version(lead, dtype_name):
+    """On CPU tensors t2_ratio_track_hop is t2_ratio_track_hop_ref bit for
+    bit (a single ring, rows, zero rows; a length that is not a multiple of
+    hop), launches nothing and counts rows x windows, as the kernel
+    branch does."""
+    from c_ofdm_tpu_torch.io import trace
+    _, ts = _specs(dtype_name)
+    rng = np.random.default_rng(16)
+    n = 3 * ts.cfg.frame_len + 37
+    caps = _t(_crandn(rng, (*lead, n)).astype(
+        {"c64": np.complex64, "c128": np.complex128}[dtype_name]))
+    before = tsync.t2_ratio_track_hop.launches
+    trace.enable()
+    try:
+        got = tsync.t2_ratio_track_hop(ts, caps)
+        counts = trace.drain()["counts"]
+    finally:
+        trace.disable()
+    want = tsync.t2_ratio_track_hop_ref(ts, caps)
+    assert got.shape == (*lead, n // (ts.cfg.t2sin_size // 2) - 1)
+    assert torch.equal(got, want)
+    assert tsync.t2_ratio_track_hop.launches == before
+    assert counts["hop_windows"] == math.prod(lead) * got.shape[-1]
 
 
 @pytest.mark.parametrize("n", [896, 3000, 30080])

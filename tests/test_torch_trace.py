@@ -9,6 +9,7 @@ graph-side spans, the marks in a captured graph and the replayed counts
 need the card (``tests/test_torch_cuda.py``)."""
 
 import json
+import math
 import time
 
 import numpy as np
@@ -127,7 +128,7 @@ def test_off_records_nothing_and_runs_the_same_ops(blocks, monkeypatch):
     monkeypatch.undo()
     assert trace.drain() == {"spans": [], "counts": {
         "regions_scored": 0, "slots_demodulated": 0, "mf_chunks": 0,
-        "cfo_windows": 0, "hits_accepted": 0}}
+        "cfo_windows": 0, "hop_windows": 0, "hits_accepted": 0}}
 
 
 def test_spans_nest_under_their_entry_call():
@@ -159,8 +160,9 @@ def test_spans_nest_under_their_entry_call():
 
 
 def test_work_counts_and_hits_on_the_cpu(blocks):
-    """Two buffers of two channels: regions scored K x C and slots
-    demodulated max_frames x C a buffer, exactly; hits accepted equal the
+    """Two buffers of two channels: regions scored K x C, slots
+    demodulated max_frames x C and hop windows 1926 x C a buffer, exactly;
+    hits accepted equal the
     valid slots of the outputs.  The work counts are launch counts, so a
     graph's delta carries them."""
     spec = make_frame_spec(CFG, torch.complex64, device="cpu")
@@ -173,6 +175,8 @@ def test_work_counts_and_hits_on_the_cpu(blocks):
     assert counts["slots_demodulated"] == len(blocks) * 2 * rxr.max_frames
     assert counts["cfo_windows"] == (len(blocks) * 2 * rxr.max_frames
                                      * CFG.num_pilot_subc)
+    assert counts["hop_windows"] == len(blocks) * 2 * (
+        CFG.frame_len * (CFG.rx_buf_size + 1) // (CFG.t2sin_size // 2) - 1)
     valid = sum(int(o.valid.sum()) for o in outs)
     assert counts["hits_accepted"] == valid > 0
     keys = graphs.launch_counts()
@@ -228,6 +232,25 @@ def test_coarse_cfo_counts_its_windows(cfg, backend, rows, windows):
         step.receive(caps)
         step.receive(caps)
         assert trace.drain()["counts"]["cfo_windows"] == 2 * 3 * windows
+
+
+@pytest.mark.parametrize("t2sin,lead,n", [(256, (2,), 246656),
+                                           (128, (), 5000),
+                                           (512, (3,), 6016 + 37),
+                                           (256, (0,), 4096)])
+def test_hop_track_counts_its_windows(t2sin, lead, n):
+    """With the recorder on, one hop track counts rows x (n // hop - 1)
+    windows (2 x 1926 at the stock ring); nothing with the recorder off."""
+    spec = make_frame_spec(ModemConfig(t2sin_size=t2sin), torch.complex64,
+                           device="cpu")
+    x = torch.randn((*lead, n), dtype=torch.complex64)
+    sync.t2_ratio_track_hop(spec, x)
+    assert trace.drain()["counts"]["hop_windows"] == 0
+    trace.enable()
+    got = sync.t2_ratio_track_hop(spec, x)
+    nwin = n // (t2sin // 2) - 1
+    assert got.shape == (*lead, nwin)
+    assert trace.drain()["counts"]["hop_windows"] == math.prod(lead) * nwin
 
 
 def _event(name, ts, dur, cat="kernel"):
