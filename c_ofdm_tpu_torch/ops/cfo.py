@@ -86,15 +86,19 @@ def pilot_freq_shift(spec, preamble_sig: torch.Tensor) -> torch.Tensor:
     ``cfo_win_idx`` (``cfo_window_index``) into [..., n_windows, w_max],
     its magnitude, and one argmax, which returns the first maximum, as
     jnp.argmax does.  The recorder's ``cfo_windows`` counts the windows
-    searched (rows x windows)."""
+    searched (rows x windows), and ``cfo_bins`` the spectrum's bins made
+    (rows x the basis's columns on the partial product, rows x
+    preamble_len on the FFT)."""
     size = spec.cfg.preamble_len
     x = preamble_sig[..., :size]
     if uses_partial_spectrum(spec.fft_backend, size):
         full = fftops.complex_matmul(x, spec.tensors["cfo_basis"])
     else:
         full = fftops.fft_fwd(x)
+    rows = math.prod(x.shape[:-1])
     idx = spec.tensors["cfo_win_idx"]                   # [n_windows, w_max]
-    trace.count("cfo_windows", idx.shape[0] * math.prod(x.shape[:-1]))
+    trace.count("cfo_windows", idx.shape[0] * rows)
+    trace.count("cfo_bins", full.shape[-1] * rows)
     amp = full.index_select(-1, idx.flatten()).unflatten(-1, idx.shape).abs()
     delta = torch.argmax(amp, dim=-1)       # [..., n_windows]: peak - lo
     tol = spec.cfg.cfo_outlier_bins

@@ -282,6 +282,7 @@ def test_rx_profile_writes_the_program_spans_on_its_clock(runs, tmp_path):
         "regions_scored": s["buffers"] * (slots + cfg.t2_gate_slack),
         "slots_demodulated": s["buffers"] * slots, "mf_chunks": 0,
         "cfo_windows": s["buffers"] * slots * cfg.num_pilot_subc,
+        "cfo_bins": s["buffers"] * slots * 328,
         "hop_windows": s["buffers"] * (cfg.frame_len * slots
                                        // (cfg.t2sin_size // 2) - 1),
         "hits_accepted": s["frames"]}

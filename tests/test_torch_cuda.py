@@ -927,15 +927,17 @@ def test_coarse_cfo_one_search_on_card(dev, recorder_off, geometry):
     and at the stock geometry, [256, 640] (8 windows of 41 bins in the
     partial product under matmul); 4 rows zero, the others preambles with
     CFO and noise.  Its shift equals the window loop's bit for bit, each
-    replay counts ``cfo_windows`` rows x windows, and its graph holds at
+    replay counts ``cfo_windows`` rows x windows and ``cfo_bins`` rows x
+    the spectrum's bins (92160 by the FFT, 328 in the partial product's
+    basis), and its graph holds at
     most 6 kernel nodes beside the spectrum's and the median-and-mean
     tail's (the node counts, the loop's among them, are printed)."""
     from c_ofdm_tpu_torch.ops import cfo
     from c_ofdm_tpu_torch.utils import graphs
     trace = recorder_off
-    cfg, backend, rows, windows, width = {
-        "broadcast": (BROADCAST, "pallas", 20, 600, 90),
-        "stock": (CFG, "matmul", 256, 8, 41)}[geometry]
+    cfg, backend, rows, windows, width, bins = {
+        "broadcast": (BROADCAST, "pallas", 20, 600, 90, 92160),
+        "stock": (CFG, "matmul", 256, 8, 41, 328)}[geometry]
     spec = make_frame_spec(cfg, torch.complex64, device=dev,
                            fft_backend=backend)
     assert ("cfo_basis" in spec.tensors) == (geometry == "stock")
@@ -951,7 +953,9 @@ def test_coarse_cfo_one_search_on_card(dev, recorder_off, geometry):
     trace.enable()
     got = [shift(spec, x) for _ in range(3)]
     torch.cuda.synchronize()
-    assert trace.drain()["counts"]["cfo_windows"] == 3 * rows * windows
+    counts = trace.drain()["counts"]
+    assert counts["cfo_windows"] == 3 * rows * windows
+    assert counts["cfo_bins"] == 3 * rows * bins
     trace.disable()
     want = _shift_by_window_loop(spec, x)
     for g in got:
@@ -1176,11 +1180,12 @@ def _same_sync(a, b):
     assert torch.equal(a[0].mac_bytes, b[0].mac_bytes)
 
 
-def _impaired_captures(frames, rng, extra, amp, cfo):
+def _impaired_captures(frames, rng, extra, amp, cfo, snr_db=30.0):
     """frames [B, frame_len] complex128 -> captures [B + ZERO_ROWS,
     frame_len + extra] complex64 (numpy) and the planted offsets: each
     frame at a random offset in [0, extra], amplitude ``amp``, CFO ``cfo``
-    cycles a sample, AWGN at 30 dB SNR, then ZERO_ROWS all-zero rows."""
+    cycles a sample, AWGN at ``snr_db`` dB SNR, then ZERO_ROWS all-zero
+    rows."""
     nb, flen = frames.shape
     n = flen + extra
     offs = rng.integers(0, extra + 1, nb)
@@ -1189,7 +1194,7 @@ def _impaired_captures(frames, rng, extra, amp, cfo):
         caps[b, offs[b]:offs[b] + flen] = frames[b] * amp
     caps[:nb] *= np.exp(2j * np.pi * cfo * np.arange(n))
     std = np.sqrt(float((np.abs(frames) ** 2).mean()) * amp ** 2
-                  * 10 ** (-30.0 / 10) / 2)
+                  * 10 ** (-snr_db / 10) / 2)
     caps[:nb] += std * (rng.standard_normal((nb, n))
                         + 1j * rng.standard_normal((nb, n)))
     return caps.astype(np.complex64), offs
@@ -1267,6 +1272,74 @@ def test_pallas_flagship_step_on_card(dev, geometry):
     assert _check_impaired(step, payload, rng, extra, amp, cfo, shift,
                            cpu_rows=2) == _k4_counts(
         {r: n // 2 for r, n in routes.items()})
+
+
+# DVB-T2 16K at its published occupancy (portbench/configs/dvbt2_16k.json):
+# 13248 data + 576 pilot carriers, CP 2048 (GI 1/8), QAM64, the preamble's
+# whole CP as matched-filter taps, timing at the filter's peak; 2 of the
+# configuration's 24 data symbols a frame, so the CPU plain path it is
+# held against stays quick (the cell itself runs all 24)
+DVBT2_16K = ModemConfig(fft_size=16384, num_data_subc=13248,
+                        num_pilot_subc=576, cp_size=2048, num_symb=2,
+                        pr_sin_len=2048, mod_type=6, sync_peak_refine=True)
+
+
+def test_dvbt2_16k_published_step_on_card(dev):
+    """The benchmark cell ``dvbt2_16k_batch_b64``'s step at B = 16 (+ 4 zero
+    rows): the pallas spec holds the coarse CFO's [2, 18432, 15552] basis;
+    frames at offsets in [0, 4096] with CFO 1e-5, amplitude 10 and 34 dB
+    AWGN (the cell's traffic) through the captured ``receive`` (a graph
+    replay), K4 launched once, on the cluster route.  Its sync fields and
+    bytes equal the CPU plain path's on the same captures, row for row;
+    every frame it finds lies at its planted offset with the payload's
+    bytes, no zero row holds one, and a frame it misses the benchmark's
+    plain reference sync misses too (the single-frame sync's blind
+    alignments, as the benchmark counts ``undetected``)."""
+    from c_ofdm_tpu_torch.models import tx
+    from portbench.reference import oracle
+    from portbench.reference.config import ModemConfig as RefModemConfig
+    B = 16
+    rng = np.random.default_rng(DVBT2_16K.frame_len)
+    payload = rng.integers(0, 256, (B, DVBT2_16K.frame_bytes),
+                           dtype=np.uint8)
+    step = FlagshipStep(make_frame_spec(DVBT2_16K, torch.complex64,
+                                        device=dev, fft_backend="pallas"))
+    spec = step.bound_spec()
+    assert spec.tensors["cfo_basis"].shape == (2, 18432, 15552)
+    frames = tx.transmit(spec, torch.from_numpy(payload).to(dev))
+    caps_np, offs = _impaired_captures(
+        frames.cpu().numpy().astype(np.complex128), rng, 4096, 10.0, 1e-5,
+        snr_db=34.0)
+    caps = torch.from_numpy(caps_np).to(dev)
+    step.receive(caps)
+    before = _route_counts()
+    res, s = step.receive(caps)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _route_counts().items()} == \
+        _k4_counts({"cluster": 1})
+    assert len(step.graphs.graphs) == 1
+    cpu = FlagshipStep(make_frame_spec(DVBT2_16K, torch.complex64,
+                                       device="cpu", fft_backend="pallas"))
+    res_c, s_c = cpu.receive(torch.from_numpy(caps_np))
+    for name in SYNC_FIELDS:
+        assert torch.equal(getattr(s, name).cpu(), getattr(s_c, name)), name
+    found = s.found.cpu().numpy()
+    assert torch.equal(res.mac_bytes.cpu()[found], res_c.mac_bytes[found])
+    assert not found[B:].any() and found[:B].sum() >= B // 2, found
+    ref_cfg = RefModemConfig(**{
+        k: getattr(DVBT2_16K, k) for k in ("fft_size", "num_data_subc",
+                                           "num_pilot_subc", "cp_size",
+                                           "num_symb", "pr_sin_len",
+                                           "mod_type")})
+    for r in np.flatnonzero(~found[:B]):
+        assert oracle.sync_capture(
+            ref_cfg, caps_np[r].astype(np.complex128)) < 0, r
+    hit = found[:B]
+    np.testing.assert_array_equal(s.frame_start.cpu().numpy()[:B][hit],
+                                  offs[hit])
+    np.testing.assert_array_equal(res.mac_bytes.cpu().numpy()[:B][hit],
+                                  payload[hit])
+    print(f"dvbt2_16k on the card: {int(hit.sum())} of {B} frames found")
 
 
 def test_pallas_complex128_takes_torch_fft(dev):
@@ -2511,6 +2584,7 @@ def test_traced_replay_equals_untraced_and_records(dev, recorder_off,
         "regions_scored": 4 * 8 * K,
         "slots_demodulated": 4 * 8 * rxr.max_frames, "mf_chunks": 0,
         "cfo_windows": 4 * 8 * rxr.max_frames * CFG.num_pilot_subc,
+        "cfo_bins": 4 * 8 * rxr.max_frames * 328,
         "hop_windows": 4 * 8 * 1926,
         "hits_accepted": int(sum(int(o.valid.sum()) for o in got))}
     assert recorded["counts"]["hits_accepted"] > 0

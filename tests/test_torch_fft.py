@@ -610,6 +610,27 @@ def test_dft_basis_host_and_device_paths():
         tfft.dft_basis(65536, np.arange(128), device=CPU, rdt=torch.float32)
 
 
+@pytest.mark.parametrize("rdt", [torch.float32, torch.float64])
+def test_dft_basis_device_path_in_blocks(rdt):
+    """The device path builds its rows in blocks of 2^23 / n (1024 at n =
+    8192: here two whole blocks and a partial one) written into one
+    [2, R, n] result, bit for bit the one-pass cos/sin of the whole phase
+    index; ``transpose`` is a view of that result."""
+    n = 8192
+    rows = np.arange(2500) * 5 - 77
+    got = tfft.dft_basis(n, rows, -1, scale=0.5, transpose=True, device=CPU,
+                         rdt=rdt)
+    assert got.shape == (2, n, rows.size) and got.stride() == (
+        rows.size * n, 1, n)
+    r = torch.as_tensor(rows % n, dtype=torch.int32)
+    k = torch.arange(n, dtype=torch.int32)
+    ang = (torch.remainder(r[:, None] * k[None, :], n).to(rdt)
+           * torch.tensor(-2 * np.pi / n, dtype=rdt))
+    s = torch.tensor(0.5, dtype=rdt)
+    want = torch.stack([torch.cos(ang) * s, torch.sin(ang) * s])
+    assert torch.equal(got, want.transpose(1, 2))
+
+
 def test_check_backend_names():
     for b in tfft.BACKENDS:
         tfft.check_backend(b)

@@ -128,7 +128,8 @@ def test_off_records_nothing_and_runs_the_same_ops(blocks, monkeypatch):
     monkeypatch.undo()
     assert trace.drain() == {"spans": [], "counts": {
         "regions_scored": 0, "slots_demodulated": 0, "mf_chunks": 0,
-        "cfo_windows": 0, "hop_windows": 0, "hits_accepted": 0}}
+        "cfo_windows": 0, "cfo_bins": 0, "hop_windows": 0,
+        "hits_accepted": 0}}
 
 
 def test_spans_nest_under_their_entry_call():
@@ -175,6 +176,8 @@ def test_work_counts_and_hits_on_the_cpu(blocks):
     assert counts["slots_demodulated"] == len(blocks) * 2 * rxr.max_frames
     assert counts["cfo_windows"] == (len(blocks) * 2 * rxr.max_frames
                                      * CFG.num_pilot_subc)
+    assert counts["cfo_bins"] == (len(blocks) * 2 * rxr.max_frames
+                                  * spec.tensors["cfo_basis"].shape[-1])
     assert counts["hop_windows"] == len(blocks) * 2 * (
         CFG.frame_len * (CFG.rx_buf_size + 1) // (CFG.t2sin_size // 2) - 1)
     valid = sum(int(o.valid.sum()) for o in outs)
@@ -208,30 +211,46 @@ BROADCAST = ModemConfig(fft_size=82944, num_data_subc=48000,
                         pr_sin_len=4096, mod_type=6)
 
 
-@pytest.mark.parametrize("cfg,backend,rows,windows", [
-    (CFG, "matmul", 3, 8), (CFG, "xla", 3, 8), (BROADCAST, "xla", 20, 600)],
+@pytest.mark.parametrize("cfg,backend,rows,windows,bins", [
+    (CFG, "matmul", 3, 8, 328), (CFG, "xla", 3, 8, 640),
+    (BROADCAST, "xla", 20, 600, 92160)],
     ids=["stock-matmul", "stock-xla", "broadcast-xla"])
-def test_coarse_cfo_counts_its_windows(cfg, backend, rows, windows):
+def test_coarse_cfo_counts_its_windows(cfg, backend, rows, windows, bins):
     """With the recorder on, one coarse-CFO search counts rows x windows:
     20 x 600 = 12000 at the broadcast cell's rows, rows x 8 at the stock
-    geometry on either branch; nothing with the recorder off.  A batch
-    receive counts its rows' windows once a call."""
+    geometry on either branch; and ``cfo_bins`` rows x the bins its
+    spectrum is made over: the partial product's basis columns (328 at the
+    stock geometry under matmul: [2, 640, 328]), else the preamble's length
+    (the FFT: 640 stock, 92160 broadcast); nothing with the recorder off.
+    Both are launch counts, so a graph's replay adds them as the eager call
+    does.  A batch receive counts its rows' windows and bins once a call."""
     from c_ofdm_tpu_torch.ops import cfo
     spec = make_frame_spec(cfg, torch.complex64, device="cpu",
                            fft_backend=backend)
     assert spec.tensors["cfo_win_idx"].shape[0] == windows
+    if backend == "matmul":
+        assert spec.tensors["cfo_basis"].shape == (2, cfg.preamble_len, bins)
+    else:
+        assert "cfo_basis" not in spec.tensors and bins == cfg.preamble_len
     x = torch.randn((rows, cfg.preamble_len), dtype=torch.complex64)
     cfo.pilot_freq_shift(spec, x)
-    assert trace.drain()["counts"]["cfo_windows"] == 0
+    counts = trace.drain()["counts"]
+    assert counts["cfo_windows"] == counts["cfo_bins"] == 0
     trace.enable()
     cfo.pilot_freq_shift(spec, x)
-    assert trace.drain()["counts"]["cfo_windows"] == rows * windows
+    counts = trace.drain()["counts"]
+    assert counts["cfo_windows"] == rows * windows
+    assert counts["cfo_bins"] == rows * bins
+    assert graphs.launch_counts()[(trace.count, "work_counts",
+                                   "cfo_bins")] == 0
     if cfg is CFG:
         step = FlagshipStep(spec)
         caps = _captures()
         step.receive(caps)
         step.receive(caps)
-        assert trace.drain()["counts"]["cfo_windows"] == 2 * 3 * windows
+        counts = trace.drain()["counts"]
+        assert counts["cfo_windows"] == 2 * 3 * windows
+        assert counts["cfo_bins"] == 2 * 3 * bins
 
 
 @pytest.mark.parametrize("t2sin,lead,n", [(256, (2,), 246656),
