@@ -100,13 +100,13 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
     working precision (or, for wideband matmul bases, built on the device by
     ``fft.dft_basis``).  The partial-DFT bases are built only for the
     backends that read them: ``rx_basis``, ``tx_basis`` and
-    ``tx_pilot_time`` for the matmul backends, ``cfo_basis`` for all but
-    ``xla`` and ``ct*`` up to a 32768-point preamble; the bin gathers
+    ``tx_pilot_time`` for the matmul backends, ``cfo_basis`` where
+    ``cfo.uses_partial_spectrum`` takes the product; the bin gathers
     (``pilot_idx``, ``data_idx``, ``tx_bin_src``) for the other backends on
     a layout that is not the canonical one.  The coarse CFO's window index
-    ``cfo_win_idx`` points into whichever spectrum the backend makes.  No step makes a constant from
-    host data while it runs: a CUDA-graph capture refuses the host-to-device
-    copy (see ``utils/graphs.py``)."""
+    ``cfo_win_idx`` points into whichever spectrum that rule makes.  No
+    step makes a constant from host data while it runs: a CUDA-graph
+    capture refuses the host-to-device copy (see ``utils/graphs.py``)."""
     rdt = real_dtype(dtype)
 
     def pair(w):
@@ -122,6 +122,8 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
 
     segs = cfo._cfo_window_segments(arrays["cfo_borders"],
                                     arrays["cfo_window_mask"])
+    partial = cfo.uses_partial_spectrum(
+        fft_backend, cfg.preamble_len, sum(hi - lo for lo, hi in segs))
     _, t2_weights = sync._t2_masked_bins(arrays["t2_mask"])
     chan_i, chan_k = chanest._chan_index_np(cfg.num_data_subc)
     hop_basis, hop_sign = sync._t2_hop_np(arrays["t2_mask"])
@@ -139,8 +141,7 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         "cfo_lo": torch.tensor([lo for lo, _ in segs], dtype=torch.int64,
                                device=device),
         "cfo_win_idx": torch.from_numpy(cfo.cfo_window_index(
-            segs, cfg.preamble_len, cfo.uses_partial_spectrum(
-                fft_backend, cfg.preamble_len))).to(device),
+            segs, cfg.preamble_len, partial)).to(device),
         "t2_burst": cplx(arrays["t2_burst"]),
         "preamble_time": cplx(arrays["preamble_time"]),
         "pre_conj": cplx(np.conj(arrays["preamble_time"])),
@@ -148,7 +149,7 @@ def _build_tensors(cfg: ModemConfig, arrays: Dict[str, np.ndarray],
         "chan_i": real(chan_i),
         "chan_k": real(chan_k),
     }
-    if cfo.uses_partial_spectrum(fft_backend, cfg.preamble_len):
+    if partial:
         tensors["cfo_basis"] = cfo.cfo_basis(cfg.preamble_len, segs, device,
                                              rdt)
     if fft_backend not in fft.MATMUL_BACKENDS and not \

@@ -58,41 +58,52 @@ def cfo_window_index(segments, preamble_len: int,
     return idx if partial else (idx + (preamble_len + 1) // 2) % preamble_len
 
 
-def uses_partial_spectrum(backend: str, preamble_len: int) -> bool:
-    """Whether ``pilot_freq_shift`` projects onto the inspected bins (the
-    spec then holds ``cfo_basis``) rather than transforming the whole
-    preamble: every backend but ``xla`` and ``ct*``, up to a preamble of
-    ``fft.MAX_DEVICE_BASIS_N`` points.  The ct backends keep the FFT
-    because preamble_len (fft + cp per symbol) is never a power of two, and
-    at wideband sizes the partial product over ~size/2 inspected bins costs
-    more than the rest of the step.  Past ``fft.MAX_DEVICE_BASIS_N`` points
-    (DVB-T2's 32K FFT: 36 864) every backend takes the FFT, by rule: the
-    basis's int32 phase index overflows there and the JAX package's partial
-    DFT asserts, so the projection has no reference at such sizes.  The
-    switch is that limit, not a size where one method was measured to
-    overtake the other."""
+# how many times slower than the partial product, per FLOP, the preamble's
+# whole FFT runs at the coarse CFO's shapes: the product is taken while its
+# 8·n·m FLOPs a row stay under FFT_SLOWDOWN times the FFT's 5·n·log2(n).
+# Measured on an H100 (PERF.md §6) at 68 rows: 28-69 at preambles of
+# 640-18432 points, 69 the highest, at 4608.  Every size measured above that
+# ratio (125 and up) ran faster on the FFT; the stock 640-point preamble
+# (ratio 56) keeps the product, though the FFT ran it 2x faster (PERF.md §7).
+FFT_SLOWDOWN = 69
+
+
+def uses_partial_spectrum(backend: str, preamble_len: int, bins: int) -> bool:
+    """Whether ``pilot_freq_shift`` projects the preamble onto its ``bins``
+    inspected bins (the spec then holds ``cfo_basis``) rather than
+    transforming the whole preamble: only while the product's work,
+    8·preamble_len·bins FLOPs a row, stays under ``FFT_SLOWDOWN`` times the
+    FFT's 5·preamble_len·log2(preamble_len).  The stock geometry's 328 bins
+    of a 640-point preamble take the product; DVB-T2 16K's 15552 of 18432
+    take the FFT.  Besides, ``xla`` and ``ct*`` always take the FFT, as the
+    JAX package's estimator does under them.  Past ``fft.MAX_DEVICE_BASIS_N``
+    points every backend takes the FFT: the basis's int32 phase index
+    overflows there and the JAX package's partial DFT asserts, so the
+    projection has no reference at such sizes."""
     return (backend != "xla" and not backend.startswith("ct")
-            and preamble_len <= fftops.MAX_DEVICE_BASIS_N)
+            and preamble_len <= fftops.MAX_DEVICE_BASIS_N
+            and 8 * bins < FFT_SLOWDOWN * 5 * math.log2(preamble_len))
 
 
 def pilot_freq_shift(spec, preamble_sig: torch.Tensor) -> torch.Tensor:
     """Coarse CFO (cycles/sample) from pilot peaks of the fftshifted preamble
     spectrum (`OFDM/Frame.hpp:285-337`).  preamble_sig [..., preamble_len]
     -> [...].  The spectrum is one full-precision partial-DFT product onto
-    only the bins the peak-search windows inspect where
-    ``uses_partial_spectrum``, else the full forward FFT (``torch.fft``,
-    whatever the spec's backend), left unshifted.  One search then serves
-    every window: one gather of the spectrum by the spec's constant
-    ``cfo_win_idx`` (``cfo_window_index``) into [..., n_windows, w_max],
-    its magnitude, and one argmax, which returns the first maximum, as
-    jnp.argmax does.  The recorder's ``cfo_windows`` counts the windows
-    searched (rows x windows), and ``cfo_bins`` the spectrum's bins made
-    (rows x the basis's columns on the partial product, rows x
-    preamble_len on the FFT)."""
+    only the bins the peak-search windows inspect where the spec holds
+    ``cfo_basis`` (``uses_partial_spectrum``), else the full forward FFT
+    (``torch.fft``, whatever the spec's backend), left unshifted.  One
+    search then serves every window: one gather of the spectrum by the
+    spec's constant ``cfo_win_idx`` (``cfo_window_index``) into [...,
+    n_windows, w_max], its magnitude, and one argmax, which returns the
+    first maximum, as jnp.argmax does.  The recorder's ``cfo_windows``
+    counts the windows searched (rows x windows), and ``cfo_bins`` the
+    spectrum's bins made (rows x the basis's columns on the partial
+    product, rows x preamble_len on the FFT)."""
     size = spec.cfg.preamble_len
     x = preamble_sig[..., :size]
-    if uses_partial_spectrum(spec.fft_backend, size):
-        full = fftops.complex_matmul(x, spec.tensors["cfo_basis"])
+    basis = spec.tensors.get("cfo_basis")
+    if basis is not None:
+        full = fftops.complex_matmul(x, basis)
     else:
         full = fftops.fft_fwd(x)
     rows = math.prod(x.shape[:-1])

@@ -1284,17 +1284,18 @@ DVBT2_16K = ModemConfig(fft_size=16384, num_data_subc=13248,
                         pr_sin_len=2048, mod_type=6, sync_peak_refine=True)
 
 
-def test_dvbt2_16k_published_step_on_card(dev):
+def test_dvbt2_16k_published_step_on_card(dev, recorder_off):
     """The benchmark cell ``dvbt2_16k_batch_b64``'s step at B = 16 (+ 4 zero
-    rows): the pallas spec holds the coarse CFO's [2, 18432, 15552] basis;
-    frames at offsets in [0, 4096] with CFO 1e-5, amplitude 10 and 34 dB
-    AWGN (the cell's traffic) through the captured ``receive`` (a graph
-    replay), K4 launched once, on the cluster route.  Its sync fields and
-    bytes equal the CPU plain path's on the same captures, row for row;
-    every frame it finds lies at its planted offset with the payload's
-    bytes, no zero row holds one, and a frame it misses the benchmark's
-    plain reference sync misses too (the single-frame sync's blind
-    alignments, as the benchmark counts ``undetected``)."""
+    rows): the pallas spec's coarse CFO takes the preamble's FFT, so it
+    holds no partial-spectrum basis, and a traced call counts ``cfo_bins``
+    20 x 18432; frames at offsets in [0, 4096] with CFO 1e-5, amplitude 10
+    and 34 dB AWGN (the cell's traffic) through the captured ``receive``
+    (a graph replay), K4 launched once, on the cluster route.  Its sync
+    fields and bytes equal the CPU plain path's on the same captures, row
+    for row; every frame it finds lies at its planted offset with the
+    payload's bytes, no zero row holds one, and a frame it misses the
+    benchmark's plain reference sync misses too (the single-frame sync's
+    blind alignments, as the benchmark counts ``undetected``)."""
     from c_ofdm_tpu_torch.models import tx
     from portbench.reference import oracle
     from portbench.reference.config import ModemConfig as RefModemConfig
@@ -1305,7 +1306,7 @@ def test_dvbt2_16k_published_step_on_card(dev):
     step = FlagshipStep(make_frame_spec(DVBT2_16K, torch.complex64,
                                         device=dev, fft_backend="pallas"))
     spec = step.bound_spec()
-    assert spec.tensors["cfo_basis"].shape == (2, 18432, 15552)
+    assert "cfo_basis" not in spec.tensors
     frames = tx.transmit(spec, torch.from_numpy(payload).to(dev))
     caps_np, offs = _impaired_captures(
         frames.cpu().numpy().astype(np.complex128), rng, 4096, 10.0, 1e-5,
@@ -1339,6 +1340,11 @@ def test_dvbt2_16k_published_step_on_card(dev):
                                   offs[hit])
     np.testing.assert_array_equal(res.mac_bytes.cpu().numpy()[:B][hit],
                                   payload[hit])
+    trace = recorder_off
+    trace.enable()
+    step.receive(caps)
+    torch.cuda.synchronize()
+    assert trace.drain()["counts"]["cfo_bins"] == caps.shape[0] * 18432
     print(f"dvbt2_16k on the card: {int(hit.sum())} of {B} frames found")
 
 

@@ -16,8 +16,9 @@ them pilots, 2 symbols, QAM64) at DVB-T2's 16K and 32K FFT sizes with its
 occupancy, the benchmark's ``dvbt2_16k`` (13248 data + 576 pilot carriers,
 a pilot every 24 as PP3's D_X·D_Y, the preamble's whole 2048-sample CP as
 matched-filter taps, timing at the filter's peak), whose 18432-sample
-preamble takes the coarse CFO's partial-spectrum product (a [2, 18432,
-15552] basis: 2.29 GB in float32, 4.58 GB in float64; built once each).
+preamble's coarse CFO takes the whole FFT (``cfo.uses_partial_spectrum``:
+a product onto its 15552 inspected bins would do ~1750x the work); the
+partial product is held against it there on a handful of windows.
 The port under ``fft_backend="pallas"`` (K4's plain version) against the
 JAX package under ``xla``; at the published occupancy also against the
 benchmark's plain reference (``portbench/reference/receiver.py``).
@@ -51,7 +52,8 @@ from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
 from c_ofdm_tpu_torch.models import rx as trx
 from c_ofdm_tpu_torch.models.modem import FlagshipStep
 from c_ofdm_tpu_torch.models import tx as ttx
-from c_ofdm_tpu_torch.ops import dft
+from c_ofdm_tpu_torch.ops import cfo, dft
+from c_ofdm_tpu_torch.ops import fft as fftops
 from portbench.reference import receiver as ref_receiver
 from portbench.reference.config import ModemConfig as RefModemConfig
 
@@ -279,11 +281,13 @@ LAYOUTS = {"published": PUBLISHED, "auto": AUTO}
 
 @pytest.fixture(scope="module")
 def published_spec():
-    """The port's complex64 spec at the published occupancy under pallas
-    (its coarse-CFO basis [2, 18432, 15552] float32, built once)."""
+    """The port's complex64 spec at the published occupancy under pallas,
+    built once: its coarse CFO takes the preamble's FFT, so it holds no
+    partial-spectrum basis (which would be [2, 18432, 15552], 2.29 GB)."""
     spec = make_frame_spec(ModemConfig(**PUBLISHED), torch.complex64,
                            device="cpu", fft_backend="pallas")
-    assert spec.tensors["cfo_basis"].shape == (2, 18432, 15552)
+    assert "cfo_basis" not in spec.tensors
+    assert spec.tensors["cfo_win_idx"].shape == (576, 27)
     return spec
 
 
@@ -295,20 +299,19 @@ def _same_sync(st, sj):
 
 
 def test_published_occupancy_complex128_matches_jax():
-    """(a) In complex128 the port under pallas (partial-spectrum coarse CFO,
-    K4's cluster route's plain version) and the JAX package under xla (the
-    preamble's FFT) put both frames at their planted offsets and find none
-    in the zero row, with every sync field equal and the bytes the
-    payloads; their soft values agree within 1e-9 (float64 arithmetic by
-    two routes: the coarse CFO is an integer bin count either way, the rest
-    rounds at ~1e-13)."""
+    """(a) In complex128 the port under pallas (the coarse CFO on the
+    preamble's FFT, K4's cluster route's plain version) and the JAX package
+    under xla (the preamble's FFT) put both frames at their planted offsets
+    and find none in the zero row, with every sync field equal and the
+    bytes the payloads; their soft values agree within 1e-9 (float64
+    arithmetic by two routes: the coarse CFO is an integer bin count either
+    way, the rest rounds at ~1e-13)."""
     payload, caps, offs = _published_captures()
     ts = make_frame_spec(ModemConfig(**PUBLISHED), torch.complex128,
                          device="cpu", fft_backend="pallas")
-    assert ts.tensors["cfo_basis"].dtype == torch.float64
+    assert "cfo_basis" not in ts.tensors
     rt, st = FlagshipStep(ts).receive(torch.from_numpy(
         caps.astype(np.complex128)))
-    del ts                      # its 4.58 GB basis, before the JAX run
     rj, sj = _jax_published("published", jnp.complex128)
     _same_sync(st, sj)
     assert st.found.tolist() == [True, True, False]
@@ -342,6 +345,35 @@ def test_published_occupancy_decodes_against_the_reference(published_spec):
     low, _ = ref_receiver.demodulate(cfg, frames, tf32=True)
     control = (low.to(torch.complex128) - want).abs().max()
     assert control > SOFT_GAP, float(control)
+
+
+def test_published_partial_product_matches_the_fft(published_spec):
+    """(d) The coarse CFO's partial product (the route of the stock
+    640-point preamble) against the FFT this 18432-point one takes, on the
+    published captures' preambles (each at its planted start; the zero
+    row's first samples): a basis (``cfo.cfo_basis``) onto 8 of the 576
+    windows (the first three, two in the middle, the last three) gives the
+    FFT's bins of those windows within 2e-6·max|X| (two float32 routes
+    over 18432 terms; they read 7.5e-7·max|X| apart) and the same peak in
+    every window, the argmax the search takes."""
+    payload, caps, offs = _published_captures()
+    cfg = published_spec.cfg
+    n = cfg.preamble_len
+    starts = [*(offs + cfg.t2sin_size), 0]
+    x = torch.from_numpy(np.stack([caps[r, s:s + n]
+                                   for r, s in enumerate(starts)]))
+    every = published_spec.cfo_segments
+    segs = [every[i] for i in (0, 1, 2, 287, 288, 573, 574, 575)]
+    part = fftops.complex_matmul(x, cfo.cfo_basis(n, segs, "cpu",
+                                                  torch.float32))
+    full = fftops.fft_fwd(x)
+    got = part[:, torch.from_numpy(cfo.cfo_window_index(segs, n, True))]
+    want = full[:, torch.from_numpy(cfo.cfo_window_index(segs, n, False))]
+    gap = (got - want).abs().max() / want.abs().max()
+    assert gap < 2e-6, float(gap)
+    peaks = want.abs().argmax(-1)
+    assert torch.equal(got.abs().argmax(-1), peaks)
+    assert peaks[:B].any() and not peaks[B:].any()
 
 
 def test_auto_rule_times_published_occupancy_one_sample_late(

@@ -661,6 +661,28 @@ def test_pilot_freq_shift_one_search_equals_jax(geometry, backend, inputs,
         monkeypatch.undo()
 
 
+@pytest.mark.parametrize("backend,preamble_len,bins,partial", [
+    ("matmul", 640, 328, True), ("pallas", 640, 328, True),
+    ("matmul_bf16", 640, 349, True), ("pallas", 18432, 15552, False),
+    ("matmul", 18432, 15552, False), ("pallas", 1644, 832, False),
+    ("pallas", 36864, 16, False), ("matmul", 92160, 16, False),
+    ("xla", 640, 328, False), ("ct", 640, 328, False),
+    ("ct_bf16", 640, 328, False)])
+def test_partial_spectrum_rule(backend, preamble_len, bins, partial):
+    """The coarse CFO projects onto its inspected bins only while the
+    product's 8·n·m FLOPs a row stay under ``FFT_SLOWDOWN`` times the FFT's
+    5·n·log2(n): Pluto's 328 bins of 640 (and the tests' uneven 349) under
+    matmul* and pallas; not DVB-T2 16K's 15552 of 18432, nor LTE 1536's 832
+    of 1644; never past ``MAX_DEVICE_BASIS_N`` (36864, 92160) nor under xla
+    or ct*.  The switch sits where the two costs meet: at 1024 points, 8·m
+    against FFT_SLOWDOWN·50."""
+    assert tcfo.uses_partial_spectrum(backend, preamble_len, bins) == partial
+    edge = tcfo.FFT_SLOWDOWN * 5 * 10 / 8
+    assert tcfo.uses_partial_spectrum(backend, 1024, math.ceil(edge) - 1) \
+        == (backend not in ("xla", "ct", "ct_bf16"))
+    assert not tcfo.uses_partial_spectrum(backend, 1024, math.ceil(edge))
+
+
 @pytest.mark.parametrize("geometry,backend", CFO_CASES)
 def test_cfo_window_index_holds_each_window(geometry, backend):
     """``cfo_win_idx`` [n_windows, w_max] holds each used window's bins in

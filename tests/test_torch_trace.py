@@ -211,24 +211,32 @@ BROADCAST = ModemConfig(fft_size=82944, num_data_subc=48000,
                         pr_sin_len=4096, mod_type=6)
 
 
+# DVB-T2 16K at its published occupancy (the benchmark's dvbt2_16k)
+DVBT2_16K = ModemConfig(fft_size=16384, num_data_subc=13248,
+                        num_pilot_subc=576, cp_size=2048, num_symb=2,
+                        pr_sin_len=2048, mod_type=6, sync_peak_refine=True)
+
+
 @pytest.mark.parametrize("cfg,backend,rows,windows,bins", [
     (CFG, "matmul", 3, 8, 328), (CFG, "xla", 3, 8, 640),
-    (BROADCAST, "xla", 20, 600, 92160)],
-    ids=["stock-matmul", "stock-xla", "broadcast-xla"])
+    (BROADCAST, "xla", 20, 600, 92160), (DVBT2_16K, "pallas", 2, 576, 18432)],
+    ids=["stock-matmul", "stock-xla", "broadcast-xla", "dvbt2-pallas"])
 def test_coarse_cfo_counts_its_windows(cfg, backend, rows, windows, bins):
     """With the recorder on, one coarse-CFO search counts rows x windows:
     20 x 600 = 12000 at the broadcast cell's rows, rows x 8 at the stock
-    geometry on either branch; and ``cfo_bins`` rows x the bins its
-    spectrum is made over: the partial product's basis columns (328 at the
-    stock geometry under matmul: [2, 640, 328]), else the preamble's length
-    (the FFT: 640 stock, 92160 broadcast); nothing with the recorder off.
+    geometry on either branch, rows x 576 at DVB-T2 16K; and ``cfo_bins``
+    rows x the bins its spectrum is made over: the partial product's basis
+    columns (328 at the stock geometry under matmul: [2, 640, 328]), else
+    the preamble's length (the FFT: 640 stock, 92160 broadcast, 18432 at
+    DVB-T2 16K under pallas, where a product onto its 15552 inspected bins
+    would do ~1750x the FFT's work); nothing with the recorder off.
     Both are launch counts, so a graph's replay adds them as the eager call
     does.  A batch receive counts its rows' windows and bins once a call."""
     from c_ofdm_tpu_torch.ops import cfo
     spec = make_frame_spec(cfg, torch.complex64, device="cpu",
                            fft_backend=backend)
     assert spec.tensors["cfo_win_idx"].shape[0] == windows
-    if backend == "matmul":
+    if bins < cfg.preamble_len:
         assert spec.tensors["cfo_basis"].shape == (2, cfg.preamble_len, bins)
     else:
         assert "cfo_basis" not in spec.tensors and bins == cfg.preamble_len
