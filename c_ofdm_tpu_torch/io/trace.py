@@ -30,16 +30,17 @@ records two kinds of events, off unless ``enable()`` is called:
   stage (``stage_split``).  The tracing state is part of a graph's key: an
   untraced capture holds no mark.
 
-and seven counts of the receiver's work: ``regions_scored`` (the gated
+and eight counts of the receiver's work: ``regions_scored`` (the gated
 sync's candidate regions matched-filtered), ``slots_demodulated`` (frame
 slots demodulated), ``mf_chunks`` (the overlap-save matched filter's
 chunks, rows x chunks a row), ``cfo_windows`` (the coarse CFO's pilot
 windows searched, rows x windows), ``cfo_bins`` (the bins of the coarse
 CFO's spectrum, rows x the partial product's columns or rows x
-preamble_len on the FFT) and ``hop_windows`` (the stream's hop-track
-windows, rows x windows), host counts that graphs replay as
-they replay the kernels' launch counts (``count.work_counts``, read by
-``utils/graphs.py::launch_counts``),
+preamble_len on the FFT), ``hop_windows`` (the stream's hop-track
+windows, rows x windows) and ``fourstep_rows`` (the rows K4's four-step
+route transformed, summed over its transforms), host counts that graphs
+replay as they replay the kernels' launch counts (``count.work_counts``,
+read by ``utils/graphs.py::launch_counts``),
 and ``hits_accepted`` (frames the gated sync accepted), device data summed
 into a device int64 counter a device and read once by ``drain()``.
 
@@ -61,7 +62,7 @@ import torch
 
 STAGES = ("sync", "extract", "recover", "dft", "equalize", "end")
 WORK_COUNTS = ("regions_scored", "slots_demodulated", "mf_chunks",
-               "cfo_windows", "cfo_bins", "hop_windows")
+               "cfo_windows", "cfo_bins", "hop_windows", "fourstep_rows")
 
 
 class StageTrace:
@@ -129,9 +130,10 @@ class Recorder:
         """Hand out and forget what was recorded: {"spans": [{name,
         start_ns, end_ns, parent (an index into the list or None), call,
         label}], "counts": {regions_scored, slots_demodulated, mf_chunks,
-        cfo_windows, cfo_bins, hop_windows, hits_accepted}}.  Spans still
-        open end now; call ids start again from 0.  Reads the device hit
-        counters (one synchronisation a device)."""
+        cfo_windows, cfo_bins, hop_windows, fourstep_rows,
+        hits_accepted}}.  Spans still open end now; call ids start again
+        from 0.  Reads the device hit counters (one synchronisation a
+        device)."""
         now = time.time_ns()
         for i in self._open:
             self._spans[i][2] = now

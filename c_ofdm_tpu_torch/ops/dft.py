@@ -39,7 +39,10 @@ anything.  Each CUDA launch adds one to ``dft.launches`` and to the
 counter of the route whose kernel it is, ``dft.<route>_launches``: a
 four-step transform is two launches, a chirp call two or three of its own
 (``chirp_launches``: the chirp products and, off the four-step route, the
-filter product) beside its two m-point FFTs on m's route's counter.  On a
+filter product) beside its two m-point FFTs on m's route's counter.  The
+trace recorder's ``fourstep_rows`` counts the rows of each four-step
+transform, on the card and on the CPU (``io/trace.py``; on the card the
+chirp route's m-point FFTs on the four-step kernels too).  On a
 CPU tensor ``dft`` runs a plain version:
 ``dft_cluster_ref``, ``dft_fourstep_ref`` or ``dft_chirp_ref`` at those
 routes' sizes (no n x n planes: at n = 82944 they would be 55 GB),
@@ -66,6 +69,7 @@ import math
 import numpy as np
 import torch
 
+from ..io import trace
 from ..utils import graphs
 from . import _kernels, fft
 
@@ -881,6 +885,8 @@ def _fft_into(x2: torch.Tensor, out: torch.Tensor, sign: int, scale: float,
     if rc != 0:
         raise _fail(f"{route} kernel launch (rows={x2.shape[0]}, n={n})", rc)
     _count(route, 2 if route == "fourstep" else 1)
+    if route == "fourstep":
+        trace.count("fourstep_rows", x2.shape[0])
 
 
 def _chirp(x2: torch.Tensor, out: torch.Tensor, sign: int, scale: float,
@@ -956,11 +962,12 @@ def dft(x: torch.Tensor, sign: int = -1, scale: float = 1.0) -> torch.Tensor:
     (``_route``: past 2^25).  CUDA complex64 tensors: the kernels of the
     route ``_route(n)`` names, on the current stream (no synchronise), each
     launch adding one to ``dft.launches`` and to the counter of its
-    kernel's route, ``dft.<route>_launches``.  Rows may be
-    strided (a view such as ``sig.reshape(B, S, L)[..., cp:]`` is read in
-    place); the last axis must have stride 1 or is copied.  CPU tensors:
-    the plain version of the cluster, four-step and chirp routes at their
-    sizes, else ``dft_ref``."""
+    kernel's route, ``dft.<route>_launches``; a four-step transform adds
+    its rows to the recorder's ``fourstep_rows``, on either device.  Rows
+    may be strided (a view such as ``sig.reshape(B, S, L)[..., cp:]`` is
+    read in place); the last axis must have stride 1 or is copied.  CPU
+    tensors: the plain version of the cluster, four-step and chirp routes
+    at their sizes, else ``dft_ref``."""
     n = x.shape[-1]
     route = _route(n)
     if route is None:
@@ -969,6 +976,8 @@ def dft(x: torch.Tensor, sign: int = -1, scale: float = 1.0) -> torch.Tensor:
                          f"splits as N1·N2, both from {RADIX_MIN_N} to "
                          f"{RADIX_MAX_N})")
     if x.device.type == "cpu":
+        if route == "fourstep":
+            trace.count("fourstep_rows", x.numel() // n)
         plain = {"cluster": dft_cluster_ref, "fourstep": dft_fourstep_ref,
                  "chirp": dft_chirp_ref}.get(route, dft_ref)
         return plain(x, sign, scale)

@@ -285,5 +285,5 @@ def test_rx_profile_writes_the_program_spans_on_its_clock(runs, tmp_path):
         "cfo_bins": s["buffers"] * slots * 328,
         "hop_windows": s["buffers"] * (cfg.frame_len * slots
                                        // (cfg.t2sin_size // 2) - 1),
-        "hits_accepted": s["frames"]}
+        "fourstep_rows": 0, "hits_accepted": s["frames"]}
     assert s["stage_device_us"]["replays"] == 0      # no card, no marks

@@ -1161,6 +1161,13 @@ PALLAS_GEOMETRIES = {
                            num_pilot_subc=600, cp_size=18432, num_symb=2,
                            pr_sin_len=4096, mod_type=6), 2, {"fourstep": 4},
                4096, 10.0, 1e-6, -1),
+    # the same with timing at the matched filter's peak, as the benchmark's
+    # lte_bcast_0p37khz_61m sets it: every frame at its planted offset
+    "165888_refine": (ModemConfig(fft_size=165888, num_data_subc=48000,
+                                  num_pilot_subc=600, cp_size=18432,
+                                  num_symb=2, pr_sin_len=4096, mod_type=6,
+                                  sync_peak_refine=True), 2,
+                      {"fourstep": 4}, 4096, 10.0, 1e-6, 0),
 }
 ZERO_ROWS = 4
 SYNC_FIELDS = ("frame_start", "t2_begin", "pr_begin", "found")
@@ -2591,7 +2598,7 @@ def test_traced_replay_equals_untraced_and_records(dev, recorder_off,
         "slots_demodulated": 4 * 8 * rxr.max_frames, "mf_chunks": 0,
         "cfo_windows": 4 * 8 * rxr.max_frames * CFG.num_pilot_subc,
         "cfo_bins": 4 * 8 * rxr.max_frames * 328,
-        "hop_windows": 4 * 8 * 1926,
+        "hop_windows": 4 * 8 * 1926, "fourstep_rows": 0,
         "hits_accepted": int(sum(int(o.valid.sum()) for o in got))}
     assert recorded["counts"]["hits_accepted"] > 0
     prof.export_chrome_trace(str(tmp_path / "t.json"))

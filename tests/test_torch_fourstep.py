@@ -28,6 +28,8 @@ of float32 planes err by up to ~1e-6·max|Y| at 4099); transmit within
 """
 
 import functools
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,9 +44,14 @@ from c_ofdm_tpu.models import tx as jtx
 from c_ofdm_tpu.ops.pallas_fft import dft_pallas
 
 from c_ofdm_tpu_torch import ModemConfig, make_frame_spec
+from c_ofdm_tpu_torch.io import trace
 from c_ofdm_tpu_torch.models import rx as trx
 from c_ofdm_tpu_torch.models import tx as ttx
+from c_ofdm_tpu_torch.models.modem import FlagshipStep
 from c_ofdm_tpu_torch.ops import dft
+from portbench.reference import receiver as ref_receiver
+from portbench.reference.config import ModemConfig as RefModemConfig
+from portbench.traffic import generate
 
 torch.set_num_threads(1)
 
@@ -326,3 +333,66 @@ def test_wide_step_pallas_matches_jax_xla():
     assert s.found.numpy().all() and not s.frame_start.numpy().any()
     np.testing.assert_array_equal(clean.mac_bytes.numpy(), payload)
     assert dft.dft_planes.cache_info() == planes
+
+
+# ----------------------------- the benchmark's lte_bcast_0p37khz_61m
+
+
+PORTBENCH = Path(__file__).resolve().parent.parent / "portbench"
+# the configuration's modem keys (portbench/configs/lte_bcast_0p37khz_61m.json:
+# WIDE's geometry with timing at the matched filter's peak)
+CELL_MODEM = json.loads((PORTBENCH / "configs" / "lte_bcast_0p37khz_61m.json")
+                        .read_text())["modem"]
+# widest |port - reference| allowed on a soft value: the cell's limit
+# (portbench/limits/lte_bcast_61m_batch_b8.json, 1.1e-4), set between the
+# port's widest gap on the card (4.08e-5 over 12 seeds) and the plain
+# reference's narrowest in TF32 (3.04e-4); here the port reads 2.9e-5,
+# TF32 3.3e-4
+CELL_GAP = json.loads((PORTBENCH / "limits" / "lte_bcast_61m_batch_b8.json")
+                      .read_text())["soft_gap"]
+
+
+def test_cell_configuration_decodes_against_the_reference():
+    """The benchmark's ``lte_bcast_0p37khz_61m`` through
+    ``FlagshipStep.receive`` under pallas in complex64 (the cell's
+    precision; K4's four-step route's plain version): two frames of the
+    benchmark's float64 transmit, impaired as the cell's traffic is
+    (offsets in [0, 4096], CFO 1e-6, amplitude 10, 30 dB), then one zero
+    row.  With the filter's peak timing both frames lie at their planted
+    offsets (the auto rule puts them one sample early, as the test above
+    pins) with the payloads' bytes and none is found in the zero row; the
+    recorder counts ``fourstep_rows`` 3 rows x 3 symbols for the call.
+    The soft values lie within the cell's limit of the benchmark's float64
+    reference demodulating the same wire samples at the planted starts,
+    and the reference in TF32 (the cell's control) does not."""
+    cfg = ModemConfig(**CELL_MODEM)
+    assert cfg.peak_refine and cfg.fft_size == WIDE["fft_size"]
+    assert all(getattr(cfg, k) == v for k, v in WIDE.items())
+    ref_cfg = RefModemConfig(**CELL_MODEM)
+    rng = np.random.default_rng(61440000)
+    payload = rng.integers(0, 256, (B, cfg.frame_bytes), dtype=np.uint8)
+    frames = generate.transmit(ref_cfg, torch.from_numpy(payload)).numpy()
+    caps, offs = _impaired(frames, rng)
+    caps = np.concatenate([caps, np.zeros_like(caps[:1])])
+    step = FlagshipStep(make_frame_spec(cfg, torch.complex64, device="cpu",
+                                        fft_backend="pallas"))
+    trace.enable()
+    try:
+        res, st = step.receive(torch.from_numpy(caps))
+        rows = trace.drain()["counts"]["fourstep_rows"]
+    finally:
+        trace.disable()
+        trace.drain()
+    assert rows == caps.shape[0] * (cfg.num_pr_symb + cfg.num_symb)
+    assert st.found.tolist() == [True, True, False]
+    np.testing.assert_array_equal(st.frame_start[:B].numpy(), offs)
+    np.testing.assert_array_equal(res.mac_bytes[:B].numpy(), payload)
+    want_frames = torch.from_numpy(np.stack(
+        [caps[b, o:o + cfg.frame_len] for b, o in enumerate(offs)]
+    ).astype(np.complex128))
+    want, _ = ref_receiver.demodulate(ref_cfg, want_frames)
+    gap = (res.constellation[:B].to(torch.complex128) - want).abs().max()
+    assert gap < CELL_GAP, float(gap)
+    low, _ = ref_receiver.demodulate(ref_cfg, want_frames, tf32=True)
+    control = (low.to(torch.complex128) - want).abs().max()
+    assert control > CELL_GAP, float(control)

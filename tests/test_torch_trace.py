@@ -2,11 +2,13 @@
 nothing and the steps run the same operations; on, its spans nest under
 their entry call on ``time.time_ns``, the gated sync's work counts are exact
 and its hit count equals the frames the outputs mark valid, the
-overlap-save matched filter counts its chunks and the coarse CFO its
-windows; the stage reader splits a chrome trace's replays between their
-marks; and the spans land in a profiler trace on its own clock.  The
-graph-side spans, the marks in a captured graph and the replayed counts
-need the card (``tests/test_torch_cuda.py``)."""
+overlap-save matched filter counts its chunks, the coarse CFO its
+windows and K4's four-step route its rows, which a graph's replay adds as
+the eager call does; the stage reader splits a chrome trace's replays
+between their marks; and the spans land in a profiler trace on its own
+clock.  The
+graph-side spans, the marks in a captured graph and the counts a real
+graph's replays add need the card (``tests/test_torch_cuda.py``)."""
 
 import json
 import math
@@ -129,7 +131,7 @@ def test_off_records_nothing_and_runs_the_same_ops(blocks, monkeypatch):
     assert trace.drain() == {"spans": [], "counts": {
         "regions_scored": 0, "slots_demodulated": 0, "mf_chunks": 0,
         "cfo_windows": 0, "cfo_bins": 0, "hop_windows": 0,
-        "hits_accepted": 0}}
+        "fourstep_rows": 0, "hits_accepted": 0}}
 
 
 def test_spans_nest_under_their_entry_call():
@@ -278,6 +280,46 @@ def test_hop_track_counts_its_windows(t2sin, lead, n):
     nwin = n // (t2sin // 2) - 1
     assert got.shape == (*lead, nwin)
     assert trace.drain()["counts"]["hop_windows"] == math.prod(lead) * nwin
+
+
+class _NoGraph:
+    """Stands in for a captured CUDA graph: replaying it runs nothing."""
+
+    def replay(self):
+        pass
+
+
+@pytest.mark.parametrize("n,route", [
+    (12, "dense"), (512, "radix"), (1536, "mixed"), (510, "bluestein"),
+    (16384, "cluster"), (82944, "cluster"), (4099, "chirp"),
+    (117649, "fourstep"), (165888, "fourstep")])
+def test_fourstep_rows_counts_the_four_step_route(n, route):
+    """With the recorder on, K4's ``dft`` on a CPU tensor [2, 3, n] counts
+    ``fourstep_rows`` 6 (rows x symbols) a transform on the four-step route
+    (165888 = 64 x 2592, the benchmark's 61.44 Msps broadcast geometry;
+    117649 = 49 x 2401) and 0 on every other route (the other cells'
+    82944 and 16384 on the cluster route among them); nothing with the
+    recorder off.  It is a launch count, so a graph whose delta was taken
+    around the call, as a capture takes it, adds it on every replay."""
+    from c_ofdm_tpu_torch.ops import dft
+    assert dft._route(n) == route
+    x = torch.randn((2, 3, n), dtype=torch.complex64)
+    dft.dft(x)
+    assert trace.drain()["counts"]["fourstep_rows"] == 0
+    trace.enable()
+    before = graphs.launch_counts()
+    dft.dft(x)
+    dft.dft(x, +1, 1.0 / n)
+    delta = {k: v - before[k] for k, v in graphs.launch_counts().items()
+             if v != before[k]}
+    rows = 2 * 3 if route == "fourstep" else 0
+    assert trace.drain()["counts"]["fourstep_rows"] == 2 * rows
+    key = (trace.count, "work_counts", "fourstep_rows")
+    assert delta.get(key, 0) == 2 * rows
+    replayed = graphs.Graph(_NoGraph(), (), (), delta, 0, 0.0, 0, [])
+    for _ in range(3):
+        replayed.replay(())
+    assert trace.drain()["counts"]["fourstep_rows"] == 3 * 2 * rows
 
 
 def _event(name, ts, dur, cat="kernel"):
